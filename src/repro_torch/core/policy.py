@@ -1,0 +1,73 @@
+"""ExecutionPolicy: the single surface for every execution knob.
+
+PyTorch port of ``repro.core.policy``.  ``kernel="torch"`` is the plain
+gather math (the JAX package's ``"xla"``); ``"cuda"`` runs the hand-written
+kernels (its ``"pallas"``).  Execution is eager, so the JAX ``interpret``
+knob has no counterpart.
+
+Values the port does not run yet are refused at construction, naming the
+slice that brings them: the planner-driven ``"auto"`` schedule and fusion
+would price a CUDA backend with CPU costs, and the other probe schedules
+are not ported.
+"""
+from __future__ import annotations
+
+import dataclasses
+
+MODES = ("jspim", "baseline", "pid")
+KERNELS = ("torch", "cuda")
+SCHEDULES = ("gathered",)
+FUSIONS = ("mega", "composed")
+
+_NOT_PORTED = {
+    ("schedule", "auto"): "the planner slice (ROADMAP Queue 1 item 5)",
+    ("fusion", "auto"): "the planner slice (ROADMAP Queue 1 item 5)",
+    ("schedule", "stream"): "the bucket_probe_stream kernel (ROADMAP "
+                            "Queue 2 item 5)",
+    ("schedule", "deduped"): "the probe-schedule slice (ROADMAP Queue 1 "
+                             "item 3)",
+    ("schedule", "hot_cold"): "the probe-schedule slice (ROADMAP Queue 1 "
+                              "item 3)",
+}
+
+
+_ALLOWED = {"mode": MODES, "kernel": KERNELS, "schedule": SCHEDULES,
+            "fusion": FUSIONS}
+
+
+def check_value(field: str, value) -> None:
+    """Raise unless ``value`` is a ported value of policy ``field``:
+    ``NotImplementedError`` naming the slice that brings a known value,
+    ``ValueError`` for an unknown one."""
+    slice_ = _NOT_PORTED.get((field, value))
+    if slice_ is not None:
+        raise NotImplementedError(
+            f"{field}={value!r} is not ported to PyTorch yet; it arrives "
+            f"with {slice_}")
+    if value not in _ALLOWED[field]:
+        raise ValueError(f"unknown {field} {value!r}")
+
+
+@dataclasses.dataclass(frozen=True)
+class ExecutionPolicy:
+    """One frozen value describing *how* queries execute.
+
+    mode      -- join family: "jspim" hash probe, "baseline" sort-merge,
+                 "pid" partitioned-join emulation.
+    kernel    -- probe implementation: "cuda" hand-written kernels (the
+                 plain versions on CPU tensors), "torch" gather math.
+    schedule  -- probe schedule; only "gathered" is ported.
+    fusion    -- "mega" one fused_query launch per query, "composed" the
+                 per-stage pipeline.
+    use_cache -- default for the cross-query probe cache on ``run``.
+    """
+
+    mode: str = "jspim"
+    kernel: str = "cuda"
+    schedule: str = "gathered"
+    fusion: str = "composed"
+    use_cache: bool = True
+
+    def __post_init__(self):
+        for field in _ALLOWED:
+            check_value(field, getattr(self, field))

@@ -1,0 +1,12 @@
+"""Column-store engine (PyTorch port): SSB tables, joins, the 13 queries."""
+from repro_torch.engine.convert import dim_index_from_numpy, tables_from_numpy
+from repro_torch.engine.join import (BuildStats, DimIndex, build_dim_index,
+                                     effective_index, lookup, lookup_filtered)
+from repro_torch.engine.queries import SSB_QUERIES, SSBEngine
+from repro_torch.engine.ssb import generate_ssb, generate_ssb_dims
+from repro_torch.engine.table import Table, resolve_device
+
+__all__ = ["dim_index_from_numpy", "tables_from_numpy", "BuildStats",
+           "DimIndex", "build_dim_index", "effective_index", "lookup",
+           "lookup_filtered", "SSB_QUERIES", "SSBEngine", "generate_ssb",
+           "generate_ssb_dims", "Table", "resolve_device"]

@@ -1,0 +1,22 @@
+"""Hand-written CUDA kernels for Hopper, their plain versions, the registry.
+
+Kernel sources live in ``csrc/`` and are compiled with ``nvcc`` at the
+first launch (``_build``); importing this package needs no CUDA toolkit.
+"""
+from repro_torch.kernels.bucket_probe import (probe_filter_rows,
+                                              probe_filter_rows_plain,
+                                              probe_rows, probe_rows_plain)
+from repro_torch.kernels.fused_query import fused_query, fused_query_plain
+from repro_torch.kernels.ops import (KERNEL_REGISTRY, KernelOp, probe_table,
+                                     probe_table_filtered, register_kernel,
+                                     slot_predicate)
+from repro_torch.kernels.ref import (NULL_WORD, fused_query_ref,
+                                     probe_filter_rows_ref, probe_rows_ref,
+                                     segment_sum, unpack_words)
+
+__all__ = ["probe_filter_rows", "probe_filter_rows_plain", "probe_rows",
+           "probe_rows_plain", "fused_query", "fused_query_plain",
+           "KERNEL_REGISTRY", "KernelOp", "probe_table",
+           "probe_table_filtered", "register_kernel", "slot_predicate",
+           "NULL_WORD", "fused_query_ref", "probe_filter_rows_ref",
+           "probe_rows_ref", "segment_sum", "unpack_words"]

@@ -1,0 +1,210 @@
+"""Probe entry points over the CUDA kernels, and the kernel registry.
+
+``probe_table`` / ``probe_table_filtered`` are what ``engine/join.py``
+calls on the ``"cuda"`` kernel: hash the probe keys (a plain elementwise op,
+as in the JAX package) and hand the table planes and bucket ids to the
+kernel, which gathers the bucket rows itself.
+
+``KERNEL_REGISTRY`` lists every hand-written kernel with its plain version,
+the TPU kernel it replaces and deterministic operand cases.  The cases are
+the JAX registry's (``repro/kernels/ops.py``), drawn from the same numpy
+seeds, in the port's calling convention: table planes plus bucket ids
+instead of gathered rows.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Callable
+
+import numpy as np
+import torch
+
+from repro_torch.core.hash_table import (EMPTY_KEY, HASH_FIBONACCI,
+                                         JSPIMTable, build_table, hash_bucket)
+from repro_torch.core.lookup import ProbeResult, unpack_words
+from repro_torch.kernels.bucket_probe import (probe_filter_rows,
+                                              probe_filter_rows_plain,
+                                              probe_rows, probe_rows_plain)
+from repro_torch.kernels.fused_query import fused_query, fused_query_plain
+
+TOMBSTONE = -2  # a delete's stored delta word (reads as a miss)
+
+
+def probe_table(table: JSPIMTable, probe_keys: torch.Tensor) -> ProbeResult:
+    """Associative search through the ``probe_rows`` kernel (the gathered
+    schedule; the streaming one waits for ``bucket_probe_stream``)."""
+    keys = probe_keys.to(torch.int32)
+    bids = hash_bucket(keys, table.num_buckets, table.hash_mode)
+    return unpack_words(probe_rows(table.keys, table.values, keys, bids))
+
+
+def slot_predicate(table: JSPIMTable, dim_mask: torch.Tensor) -> torch.Tensor:
+    """Pre-evaluate a dimension predicate per hash-table slot.
+
+    A unique-key slot's payload is the dimension row, so its bit is
+    ``dim_mask[payload]``; duplication-group slots keep 1 (their rows are
+    filtered after CSR expansion).  Returns (num_buckets, bucket_width)
+    int32 0/1, the third plane of ``probe_filter_rows``.
+    """
+    payload = table.values >> 1
+    is_dup = (table.values & 1).bool()
+    n = dim_mask.shape[0]
+    hit = dim_mask[payload.clamp(0, n - 1).long()] & (payload >= 0) \
+        & (payload < n)
+    return (is_dup | hit).to(torch.int32)
+
+
+def probe_table_filtered(table: JSPIMTable, probe_keys: torch.Tensor,
+                         slot_pred: torch.Tensor) -> ProbeResult:
+    """Fused associative search + dimension filter (``probe_filter_rows``):
+    ``found`` is True only where the match also passes the predicate."""
+    keys = probe_keys.to(torch.int32)
+    bids = hash_bucket(keys, table.num_buckets, table.hash_mode)
+    return unpack_words(probe_filter_rows(table.keys, table.values,
+                                          slot_pred, keys, bids))
+
+
+# --------------------------------------------------------------------------
+# Kernel registry
+# --------------------------------------------------------------------------
+
+
+@dataclasses.dataclass(frozen=True)
+class KernelOp:
+    """One hand-written kernel: wrapper, plain version, provenance, cases.
+
+    ``fn(*args, **kwargs)`` must be bit-identical to
+    ``plain_fn(*args, **kwargs)`` on every case ``make_cases(device)``
+    yields (``[(name, args, kwargs)]``, deterministic).  ``fn.launches``
+    counts kernel launches.  ``source`` is the CUDA file, ``replaces`` the
+    Pallas kernel (file:line of its ``pallas_call``).
+    """
+
+    name: str
+    fn: Callable
+    plain_fn: Callable
+    backends: tuple[str, ...]
+    make_cases: Callable[[str], list]
+    source: str
+    replaces: str
+
+
+KERNEL_REGISTRY: dict[str, KernelOp] = {}
+
+
+def register_kernel(op: KernelOp) -> KernelOp:
+    if op.name in KERNEL_REGISTRY:
+        raise ValueError(f"kernel {op.name!r} already registered")
+    KERNEL_REGISTRY[op.name] = op
+    return op
+
+
+def _t(a, device) -> torch.Tensor:
+    return torch.as_tensor(np.asarray(a, np.int32), device=device)
+
+
+def _probe_cases(device):
+    """The reference's probe operands: a hit/miss mix over a small
+    Fibonacci-hashed table, at a size that is not a block multiple."""
+    rng = np.random.default_rng(7)
+    n, m = 64, 83
+    keys = np.arange(n, dtype=np.int32) * 3
+    payloads = rng.integers(0, 1 << 20, n).astype(np.int32)
+    table = build_table(_t(keys, device), _t(payloads, device),
+                        num_buckets=32, bucket_width=8,
+                        hash_mode=HASH_FIBONACCI)
+    pk = rng.choice(keys, m).astype(np.int32)
+    pk[::7] = 10_001  # guaranteed misses (not a multiple of 3)
+    pk[5] = EMPTY_KEY
+    pk = _t(pk, device)
+    return table, pk, hash_bucket(pk, table.num_buckets, table.hash_mode)
+
+
+def _probe_rows_cases(device="cpu"):
+    table, pk, bids = _probe_cases(device)
+    return [("hit_miss_mix", (table.keys, table.values, pk, bids), {})]
+
+
+def _filter_cases(device="cpu"):
+    table, pk, bids = _probe_cases(device)
+    mask = torch.as_tensor(np.arange(64) % 3 == 0, device=device)
+    pred = slot_predicate(table, mask)
+    return [("pred_mix", (table.keys, table.values, pred, pk, bids), {})]
+
+
+def _delta_planes(batches, num_buckets=16, bucket_width=8):
+    """Keys/words planes of a Fibonacci delta buffer after applying
+    ``[(keys, words)]`` batches: per batch the last op per key wins, an
+    existing key is overwritten in place and a new key takes its bucket's
+    next free slot, in key order (the reference's ``apply_batch``)."""
+    keys = np.full((num_buckets, bucket_width), EMPTY_KEY, np.int32)
+    words = np.zeros((num_buckets, bucket_width), np.int32)
+    fill = np.zeros(num_buckets, np.int64)
+    for bk, bw in batches:
+        bk, bw = np.asarray(bk, np.int32), np.asarray(bw, np.int32)
+        order = np.argsort(bk, kind="stable")
+        sk, sw = bk[order], bw[order]
+        last = np.append(sk[:-1] != sk[1:], True)
+        bkt = hash_bucket(torch.as_tensor(sk), num_buckets,
+                          HASH_FIBONACCI).numpy()
+        for k, w, b in zip(sk[last], sw[last], bkt[last]):
+            if k == EMPTY_KEY:
+                continue
+            hit = np.flatnonzero(keys[b] == k)
+            if hit.size:
+                words[b, hit[0]] = w
+            elif fill[b] < bucket_width:
+                keys[b, fill[b]], words[b, fill[b]] = k, w
+                fill[b] += 1
+    return keys, words
+
+
+def _delta_states():
+    """(state, keys plane, words plane) across the reference's empty / live /
+    tombstone deltas: upsert {3: 7, 9: 1, 10001: 40}, then delete {9, 30}."""
+    upsert = ([3, 9, 10_001], [7 << 1, 1 << 1, 40 << 1])
+    delete = ([9, 30], [TOMBSTONE, TOMBSTONE])
+    return [("delta_empty", *_delta_planes([])),
+            ("delta_live", *_delta_planes([upsert])),
+            ("delta_tombstone", *_delta_planes([upsert, delete]))]
+
+
+def _fused_query_cases(device="cpu"):
+    table, pk, bids = _probe_cases(device)
+    rng = np.random.default_rng(11)
+    n_rows, card = 64, 5
+    mask = torch.as_tensor(np.arange(n_rows) % 3 == 0, device=device)
+    gcol = _t(rng.integers(0, card, n_rows), device)
+
+    def attr_of(words, invalid):
+        payload = words >> 1
+        clip = payload.clamp(0, n_rows - 1).long()
+        valid = (payload >= 0) & (payload < n_rows) & ~invalid
+        return torch.where(valid, ((gcol[clip] % card) << 1)
+                           | mask[clip].to(torch.int32), -1).to(torch.int32)
+
+    attr = attr_of(table.values, (table.values & 1) == 1)
+    fmeasure = _t(rng.integers(0, 1000, pk.shape[0]), device)
+    cases = [("no_delta", (((pk, bids, table.keys, attr),), fmeasure),
+              {"num_segments": card})]
+    for state, dkeys, dwords in _delta_states():
+        dkeys, dwords = _t(dkeys, device), _t(dwords, device)
+        dattr = attr_of(dwords, dwords == TOMBSTONE)
+        dbids = hash_bucket(pk, dkeys.shape[0], HASH_FIBONACCI)
+        dim_ops = ((pk, bids, table.keys, attr, pk, dbids, dkeys, dattr),)
+        cases.append((state, (dim_ops, fmeasure), {"num_segments": card}))
+    return cases
+
+
+register_kernel(KernelOp(
+    "probe_rows", probe_rows, probe_rows_plain, ("cuda",),
+    _probe_rows_cases, "src/repro_torch/kernels/csrc/bucket_probe.cu",
+    "src/repro/kernels/bucket_probe.py:79"))
+register_kernel(KernelOp(
+    "probe_filter_rows", probe_filter_rows, probe_filter_rows_plain,
+    ("cuda",), _filter_cases, "src/repro_torch/kernels/csrc/bucket_probe.cu",
+    "src/repro/kernels/bucket_probe.py:194"))
+register_kernel(KernelOp(
+    "fused_query", fused_query, fused_query_plain, ("cuda",),
+    _fused_query_cases, "src/repro_torch/kernels/csrc/fused_query.cu",
+    "src/repro/kernels/fused_query.py:140"))

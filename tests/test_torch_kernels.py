@@ -1,0 +1,213 @@
+"""The port's kernels, through their plain versions, against the Pallas kernels.
+
+On the CPU every ``repro_torch`` kernel wrapper takes its plain version, so
+these tests hold the plain versions against the JAX package's Pallas
+kernels run with ``interpret=True``, on the JAX registry's own cases
+(drawn from the same numpy seeds) and on shape sweeps.  All arithmetic is
+int32: equality is exact.  That the CUDA kernels equal these plain versions
+is checked on the card by ``chip_smoke.py``.
+"""
+import numpy as np
+import jax.numpy as jnp
+import pytest
+import torch
+
+from repro.core import hash_table as jht
+from repro.kernels import bucket_probe as jbp
+from repro.kernels import ops as jops
+from repro.kernels import ref as jref
+from repro.kernels.fused_query import fused_query as jfused_query
+from repro_torch.core import hash_table as tht
+from repro_torch.kernels import _build
+from repro_torch.kernels import ops as tops
+from repro_torch.kernels import ref as tref
+from repro_torch.kernels.bucket_probe import probe_filter_rows, probe_rows
+from repro_torch.kernels.fused_query import _gather, fused_query
+
+REGISTRY_CASES = [("probe_rows", 0), ("probe_filter_rows", 0)] + \
+    [("fused_query", i) for i in range(4)]
+
+
+def _t(a) -> torch.Tensor:
+    return torch.as_tensor(np.array(a, np.int32))
+
+
+def _eq(got, want, msg=""):
+    if isinstance(got, tuple):
+        assert len(got) == len(want)
+        for g, w in zip(got, want):
+            _eq(g, w, msg)
+        return
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want), err_msg=msg)
+
+
+def test_registry_lists_the_on_path_kernels():
+    assert sorted(tops.KERNEL_REGISTRY) == ["fused_query", "probe_filter_rows",
+                                           "probe_rows"]
+    for name, op in tops.KERNEL_REGISTRY.items():
+        assert op.backends == ("cuda",)
+        assert op.source.startswith("src/repro_torch/kernels/csrc/")
+        assert name in jops.KERNEL_REGISTRY
+
+
+@pytest.mark.parametrize("name,i", REGISTRY_CASES)
+def test_registry_case_matches_pallas_interpret(name, i):
+    pname, pargs, pkw = tops.KERNEL_REGISTRY[name].make_cases("cpu")[i]
+    jname, jargs, jkw = jops.KERNEL_REGISTRY[name].make_cases()[i]
+    assert pname == jname
+    # the port's operands are the reference's: same planes once gathered
+    if name == "fused_query":
+        gathered = tuple(_gather(ops) for ops in pargs[0])
+        _eq(gathered, jargs[0], "dim operands")
+        _eq(pargs[1], jargs[1], "fmeasure")
+    else:
+        b = pargs[-1].long()
+        _eq(pargs[-2], jargs[0], "probe keys")
+        for plane, rows in zip(pargs[:-2], jargs[1:]):
+            _eq(plane[b], rows, "gathered rows")
+    got = tops.KERNEL_REGISTRY[name].fn(*pargs, **pkw)
+    want = jops.KERNEL_REGISTRY[name].fn(*jargs, **jkw, interpret=True)
+    _eq(got, want)
+    _eq(tops.KERNEL_REGISTRY[name].plain_fn(*pargs, **pkw), want)
+
+
+def _sweep_table(width, n_keys=200, seed=0):
+    rng = np.random.default_rng(seed)
+    keys = rng.choice(n_keys * 4, n_keys, replace=False).astype(np.int32)
+    vals = rng.integers(0, 1 << 20, n_keys).astype(np.int32)
+    nb = tht.suggest_num_buckets(n_keys, width)
+    return (tht.build_table(_t(keys), _t(vals), num_buckets=nb,
+                            bucket_width=width),
+            jht.build_table(jnp.asarray(keys), jnp.asarray(vals),
+                            num_buckets=nb, bucket_width=width))
+
+
+def _sweep_probes(m, seed):
+    rng = np.random.default_rng(seed)
+    pk = rng.integers(0, 900, m).astype(np.int32)
+    pk[::11] = tht.EMPTY_KEY
+    return pk
+
+
+@pytest.mark.parametrize("width", [8, 16])
+@pytest.mark.parametrize("m", [1, 7, 300])
+def test_probe_kernels_shape_sweep(width, m):
+    """m not a multiple of the Pallas block (64 here)."""
+    tt, jt = _sweep_table(width)
+    pk = _sweep_probes(m, m)
+    bids = tht.hash_bucket(_t(pk), tt.num_buckets, tt.hash_mode)
+    jb = jht.hash_bucket(jnp.asarray(pk), jt.num_buckets, jt.hash_mode)
+    got = probe_rows(tt.keys, tt.values, _t(pk), bids)
+    want = jbp.probe_rows(jnp.asarray(pk), jt.keys[jb], jt.values[jb],
+                          block_pb=64, interpret=True)
+    _eq(got, want)
+    mask = torch.as_tensor(np.arange(200) % 4 != 1)
+    pred = tops.slot_predicate(tt, mask)
+    _eq(pred, jops.slot_predicate(jt, jnp.asarray(mask.numpy())))
+    got = probe_filter_rows(tt.keys, tt.values, pred, _t(pk), bids)
+    want = jbp.probe_filter_rows(jnp.asarray(pk), jt.keys[jb], jt.values[jb],
+                                 jnp.asarray(pred.numpy())[jb], block_pb=64,
+                                 interpret=True)
+    _eq(got, want)
+
+
+def _fused_operands(n_dims, width, m, num_segments, seed):
+    """Random attribute planes over real tables: (port ops, jax ops, fm)."""
+    rng = np.random.default_rng(seed)
+    port, jax_ops = [], []
+    for d in range(n_dims):
+        tt, jt = _sweep_table(width, seed=seed + d)
+        hi = max(1, num_segments // n_dims)
+        attr = ((rng.integers(0, hi, tt.keys.shape) << 1)
+                | rng.integers(0, 2, tt.keys.shape)).astype(np.int32)
+        attr[rng.random(tt.keys.shape) < 0.1] = -1
+        pk = _sweep_probes(m, seed + 10 * d)
+        bids = tht.hash_bucket(_t(pk), tt.num_buckets, tt.hash_mode)
+        jb = np.asarray(jht.hash_bucket(jnp.asarray(pk), jt.num_buckets,
+                                        jt.hash_mode))
+        port.append((_t(pk), bids, tt.keys, _t(attr)))
+        jax_ops.append((jnp.asarray(pk), jt.keys[jb], jnp.asarray(attr[jb])))
+    fm = rng.integers(-1000, 100_000, m).astype(np.int32)
+    fm[rng.random(m) < 0.2] = 0
+    return tuple(port), tuple(jax_ops), fm
+
+
+@pytest.mark.parametrize("n_dims,width", [(1, 8), (3, 16), (4, 8)])
+@pytest.mark.parametrize("m,num_segments", [(7, 1), (300, 37), (257, 4000)])
+def test_fused_query_shape_sweep(n_dims, width, m, num_segments):
+    port, jax_ops, fm = _fused_operands(n_dims, width, m, num_segments,
+                                        seed=n_dims * 100 + m)
+    got = fused_query(port, _t(fm), num_segments=num_segments)
+    want = jfused_query(jax_ops, jnp.asarray(fm), num_segments=num_segments,
+                        block_pb=64, interpret=True)
+    _eq(got, want)
+
+
+def test_fused_query_q43_segment_space_matches_reference():
+    """Q4.3's 1,750,000 segments: against the JAX reference oracle (a
+    Pallas interpret run would hold the whole histogram per grid step)."""
+    size = 1_750_000
+    port, jax_ops, fm = _fused_operands(4, 8, 500, size, seed=43)
+    got = fused_query(port, _t(fm), num_segments=size)
+    want = jref.fused_query_ref(jax_ops, jnp.asarray(fm), num_segments=size)
+    _eq(got, want)
+    assert int(got[1].ne(0).sum()) > 0
+
+
+def test_segment_sum_drops_out_of_range_ids():
+    data = _t([5, 7, 11, 13])
+    seg = _t([0, -1, 3, 1])
+    _eq(tref.segment_sum(data, seg, 3), [5, 13, 0])
+
+
+def test_plain_sums_wrap_like_int32():
+    """Totals wrap mod 2^32 exactly as jnp.sum does."""
+    m = 64
+    pk = np.zeros(m, np.int32)
+    keys = _t(np.zeros((1, 8), np.int32))
+    attr = _t(np.full((1, 8), 1, np.int32))  # group 0, predicate 1
+    fm = np.full(m, 2**30, np.int32)
+    ops = ((_t(pk), _t(np.zeros(m, np.int32)), keys, attr),)
+    total, groups = fused_query(ops, _t(fm), num_segments=1)
+    want = jref.fused_query_ref(((jnp.asarray(pk), jnp.zeros((m, 8),
+                                                             jnp.int32),
+                                  jnp.ones((m, 8), jnp.int32)),),
+                                jnp.asarray(fm), num_segments=1)
+    _eq(total, want[0])
+    _eq(groups, want[1])
+
+
+@pytest.mark.parametrize("bad", ["dtype", "shape", "ndims", "meta_device"])
+def test_wrappers_reject_bad_operands(bad):
+    table, pk, bids = tops._probe_cases("cpu")
+    keys, vals = table.keys, table.values
+    if bad == "dtype":
+        pk = pk.long()
+    elif bad == "shape":
+        bids = bids[:-1]
+    elif bad == "meta_device":
+        keys, vals, pk, bids = (t.to("meta") for t in (keys, vals, pk, bids))
+    if bad == "ndims":
+        with pytest.raises(ValueError):
+            fused_query((), pk, num_segments=1)
+        return
+    with pytest.raises(ValueError):
+        probe_rows(keys, vals, pk, bids)
+
+
+def test_missing_nvcc_raises(monkeypatch, tmp_path):
+    monkeypatch.setattr(_build, "BUILD_DIR", tmp_path)
+    monkeypatch.setattr(_build.shutil, "which", lambda _: None)
+    monkeypatch.setattr(_build.os.path, "exists", lambda _: False)
+    with pytest.raises(RuntimeError, match="nvcc"):
+        _build.build()
+
+
+def test_cpu_tensors_never_load_the_cuda_library():
+    before = {n: op.fn.launches for n, op in tops.KERNEL_REGISTRY.items()}
+    for op in tops.KERNEL_REGISTRY.values():
+        for _, args, kw in op.make_cases("cpu"):
+            op.fn(*args, **kw)
+    assert _build.loaded() == ()
+    assert {n: op.fn.launches for n, op in tops.KERNEL_REGISTRY.items()} \
+        == before == {n: 0 for n in tops.KERNEL_REGISTRY}
