@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch/CUDA port's static SSB read path on one CUDA card.
+"""Drive the PyTorch/CUDA port's SSB paths on one CUDA card.
 
     python3 chip_smoke.py [--sf 10] [--seed 0]
 
@@ -10,17 +10,34 @@ Phases (each raises on failure; nothing is caught):
    ``nvcc`` (one process per source, all at once) and time it.
 3. Kernels against their plain versions on the card, bit for bit: every
    registry case, then the real operands of the generated data (every
-   dimension's probes, in chunks of at most 4M for the plain version, and
-   all 13 queries' ``fused_query`` operands).
+   dimension's probes through ``probe_rows``, ``bucket_probe_stream`` and
+   ``probe_filter_rows``, in chunks of at most 4M for the plain version,
+   and all 13 queries' ``fused_query`` operands).
 4. Main path: ``generate_ssb(sf)`` -> ``SSBEngine(tables)``, then the 13
    queries through (a) ``run_all(fusion="composed")`` on the probe cache,
    (b) cold ``run(q, use_cache=False)``, (c) ``run(q, fusion="mega")`` and
    (d) ``mode="baseline"``.  All four must agree, Q1.1 and Q2.1 must match
    a numpy computation on the host arrays, and every kernel's launch count
    over this run must equal the path's fixed count.
-5. Numbers: per-query wall times per path, per-kernel device time per
+5. Stream path: an engine with ``schedule="stream"`` on the same indexes
+   runs the cached and cold paths; its 13 answers must equal phase 4's and
+   its launches the path's fixed count.
+6. Mutation path: a fresh engine (its own dimension tables, the same fact
+   table) and a ``kernel="torch"`` twin take a seeded stream per dimension
+   with ``auto_compact=False``: delete 0.5% of the keys, upsert 0.5% to
+   random rows (a few past the table's end, which the append then
+   covers), append 0.5% new rows.  With the deltas live,
+   ``probe_filter_rows_delta`` (every dimension) and ``fused_query`` (all
+   13 queries' delta operands) are held against their plain versions on
+   the real operands; the 13 queries run cached, cold, mega and on the
+   twin, all must agree, Q1.1 and Q2.1 must match numpy over host
+   key->row maps kept through the stream, and the launches must equal the
+   fixed counts.  Then every dimension is compacted and the same checks
+   run again, with the same answers.
+7. Numbers: per-query wall times per path, per-kernel device time per
    launch (CUDA events) beside the plain version's, the bytes each launch
-   must move and the bound they set, peak device memory.
+   must move and the bound they set, ingest and compact times, peak device
+   memory.
 
 The line before the last is the kernel table as JSON; the last line is
 ``{"ok": true, "device": {...}}``.  Exits non-zero, printing no result,
@@ -46,16 +63,28 @@ ALU_OPS_PER_S = 67e12
 CHUNK = 4 << 20          # plain-version probes per chunk
 KERNEL_REPS = 10
 PLAIN_REPS = 3
-# launches of each kernel over one main-path run (phase 4)
-EXPECTED_LAUNCHES = {"probe_rows": 8, "probe_filter_rows": 32,
-                     "fused_query": 13}
+# launches of each kernel over one run of each path: cached run_all (4
+# probes), 13 cold queries (32 filtered probes, 4 unfiltered) and 13 mega
+# queries (phase 4, and phase 6 after compaction); the stream schedule's
+# cached and cold paths (phase 5); the live-delta paths (phase 6)
+_ZERO = {"probe_rows": 0, "bucket_probe_stream": 0, "probe_filter_rows": 0,
+         "probe_filter_rows_delta": 0, "fused_query": 0}
+EXPECTED_LAUNCHES = dict(_ZERO, probe_rows=8, probe_filter_rows=32,
+                         fused_query=13)
+EXPECTED_STREAM = dict(_ZERO, bucket_probe_stream=8, probe_filter_rows=32)
+EXPECTED_LIVE = dict(_ZERO, probe_rows=8, probe_filter_rows_delta=32,
+                     fused_query=13)
+# the share of each dimension's keys the mutation stream deletes, upserts
+# and appends
+MUTATION_FRAC = 0.005
 # the shapes the kernel table reports: the largest dimension's probes, and
 # the query with the most dimensions and the largest group space
 TIMED_DIM = "part"
 TIMED_QUERY = "Q4.3"
-# the dimension predicate each probe_filter_rows check uses
+# the dimension predicate each filter-kernel check uses
 FILTER_QUERY = {"customer": "Q3.1", "supplier": "Q2.1", "part": "Q2.1",
                 "date": "Q1.1"}
+PATHS = ("cached", "cached_warm", "cold", "mega")
 
 
 def log(*parts):
@@ -83,10 +112,12 @@ def main() -> int:
     import numpy as np
 
     from repro_torch.core import ExecutionPolicy, encode, hash_bucket
-    from repro_torch.engine import SSB_QUERIES, SSBEngine, generate_ssb
-    from repro_torch.engine.queries import FACT_FK, _mega_operands
+    from repro_torch.engine import (SSB_QUERIES, SSBEngine, Table,
+                                    effective_index, generate_ssb)
+    from repro_torch.engine.queries import DIM_PK, FACT_FK, _mega_operands
     from repro_torch.kernels import _build
-    from repro_torch.kernels.ops import KERNEL_REGISTRY, slot_predicate
+    from repro_torch.kernels.ops import (KERNEL_REGISTRY, delta_slot_words,
+                                         slot_predicate)
 
     def sync():
         torch.cuda.synchronize()
@@ -113,12 +144,33 @@ def main() -> int:
         end.synchronize()
         return start.elapsed_time(end) / reps
 
+    def timed_call(fn) -> float:
+        t = time.perf_counter()
+        fn()
+        sync()
+        return time.perf_counter() - t
+
+    def counted(fn):
+        """``fn()`` with every kernel's launch count set to 0 just before
+        it; returns (its result, the counts just after)."""
+        for op in KERNEL_REGISTRY.values():
+            op.fn.launches = 0
+        out = fn()
+        return out, {n: op.fn.launches for n, op in KERNEL_REGISTRY.items()}
+
+    def check_counts(got, want, what):
+        log(f"[launches] {what}: {json.dumps(got)}")
+        if got != want:
+            raise AssertionError(f"{what}: launch counts {got} != expected "
+                                 f"{want}")
+
     # -- 1. device ------------------------------------------------------------
     kind = torch.cuda.get_device_name(0)
     smi = nvidia_smi_line()
     log(f"[device] torch: {kind}; count {torch.cuda.device_count()}; "
         f"torch {torch.__version__} cuda {torch.version.cuda}")
     log(smi)
+    t_script = time.perf_counter()
 
     # -- 2. build -------------------------------------------------------------
     t0 = time.perf_counter()
@@ -180,40 +232,50 @@ def main() -> int:
         return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
                                      else "operations")
 
+    def check_probe_kernel(name, ops, vector_idx, dim, n_ops_per_probe):
+        """Hold one probe kernel against its plain version (in chunks of
+        the probe vectors) on real operands; time it on ``TIMED_DIM``."""
+        op = KERNEL_REGISTRY[name]
+        got = op.fn(*ops)
+
+        def plain(ops=ops, op=op):
+            return [op.plain_fn(*(t[s:s + CHUNK] if i in vector_idx else t
+                                  for i, t in enumerate(ops)))
+                    for s in range(0, n_fact, CHUNK)]
+        e = max_err(got, torch.cat(plain()))
+        err[name] = max(err[name], e)
+        if e:
+            raise AssertionError(f"{name} on {dim} differs from its plain "
+                                 f"version by {e}")
+        if dim == TIMED_DIM:
+            moved = nbytes(*ops) + 4 * n_fact
+            b_ms, b_by = bound(moved, n_fact * n_ops_per_probe)
+            rows[name] = {
+                "shape": f"{dim}: {n_fact} probes, table "
+                         f"{tuple(ops[0].shape)}", "bytes": moved,
+                "ms": event_ms(lambda: op.fn(*ops), KERNEL_REPS),
+                "plain_ms": event_ms(plain, PLAIN_REPS),
+                "bound_ms": b_ms, "bound_by": b_by}
+
     rows = {}
     for dim, index in engine.indexes.items():
         tbl = index.table
+        w = tbl.bucket_width
         codes = encode(index.dictionary, fact_cols[FACT_FK[dim]])
         bids = hash_bucket(codes, tbl.num_buckets, tbl.hash_mode)
         spec = SSB_QUERIES[FILTER_QUERY[dim]]
         pred = slot_predicate(tbl, spec.dim_filters[dim](tables[dim]))
         for name, ops in (("probe_rows", (tbl.keys, tbl.values, codes, bids)),
+                          ("bucket_probe_stream",
+                           (tbl.keys, tbl.values, codes, bids)),
                           ("probe_filter_rows",
                            (tbl.keys, tbl.values, pred, codes, bids))):
-            op = KERNEL_REGISTRY[name]
-            got = op.fn(*ops)
-
-            def plain(ops=ops, op=op):
-                return [op.plain_fn(*ops[:-2], ops[-2][s:s + CHUNK],
-                                    ops[-1][s:s + CHUNK])
-                        for s in range(0, n_fact, CHUNK)]
-            e = max_err(got, torch.cat(plain()))
-            err[name] = max(err[name], e)
-            if e:
-                raise AssertionError(f"{name} on {dim} differs from its "
-                                     f"plain version by {e}")
-            if dim == TIMED_DIM:
-                moved = nbytes(*ops) + 4 * n_fact
-                b_ms, b_by = bound(moved, n_fact * (2 * tbl.bucket_width + 4))
-                rows[name] = {
-                    "shape": f"{dim}: {n_fact} probes, table "
-                             f"{tuple(tbl.keys.shape)}", "bytes": moved,
-                    "ms": event_ms(lambda: op.fn(*ops), KERNEL_REPS),
-                    "plain_ms": event_ms(plain, PLAIN_REPS),
-                    "bound_ms": b_ms, "bound_by": b_by}
-        log(f"[parity] probe_rows, probe_filter_rows on {dim} ({n_fact} "
-            f"probes, {FILTER_QUERY[dim]} predicate): bit-identical")
-        del codes, bids, pred, got
+            check_probe_kernel(name, ops, (len(ops) - 2, len(ops) - 1), dim,
+                               2 * w + 4)
+        log(f"[parity] probe_rows, bucket_probe_stream, probe_filter_rows on "
+            f"{dim} ({n_fact} probes, {FILTER_QUERY[dim]} predicate): "
+            "bit-identical")
+        del codes, bids, pred
 
     def fused_plain_chunked(dim_ops, fmeasure, size):
         groups = torch.zeros(size, dtype=torch.int32, device=fmeasure.device)
@@ -225,44 +287,59 @@ def main() -> int:
         return groups.sum().to(torch.int32), groups
 
     fused = KERNEL_REGISTRY["fused_query"]
-    fused_ms = {}
-    for q in names:
-        spec = SSB_QUERIES[q]
-        dim_cols = {d: dict(tables[d].columns) for d in spec.joined_dims()}
-        dim_ops, fmeasure, size = _mega_operands(spec, fact_cols, dim_cols,
-                                                 engine.indexes)
-        got = fused.fn(dim_ops, fmeasure, num_segments=size)
-        e = max_err(got, fused_plain_chunked(dim_ops, fmeasure, size))
-        err["fused_query"] = max(err["fused_query"], e)
-        if e:
-            raise AssertionError(f"fused_query {q} differs from its plain "
-                                 f"version by {e}")
-        fused_ms[q] = event_ms(lambda: fused.fn(dim_ops, fmeasure,
-                                                num_segments=size),
-                               KERNEL_REPS)
-        if q == TIMED_QUERY:
-            moved = nbytes(*(t for ops in dim_ops for t in ops), fmeasure) \
-                + 4 * size
-            w = dim_ops[0][2].shape[1]
-            b_ms, b_by = bound(moved, n_fact * len(dim_ops) * (2 * w + 8))
-            rows["fused_query"] = {
-                "shape": f"{q}: {n_fact} rows, {len(dim_ops)} dims, {size} "
-                         "segments", "bytes": moved, "ms": fused_ms[q],
-                "plain_ms": event_ms(lambda: fused_plain_chunked(
-                    dim_ops, fmeasure, size), PLAIN_REPS),
-                "bound_ms": b_ms, "bound_by": b_by}
-        del dim_ops, fmeasure, got
-    log(f"[parity] fused_query on all {len(names)} queries' operands: "
-        "bit-identical")
-    log(f"[kernel] fused_query ms per launch by query: "
-        f"{json.dumps({q: round(v, 4) for q, v in fused_ms.items()})}")
+
+    def check_fused(eng, label):
+        """``fused_query`` against its plain version on all 13 queries'
+        operands of ``eng``; returns ms per launch by query."""
+        ms = {}
+        for q in names:
+            spec = SSB_QUERIES[q]
+            dim_cols = {d: dict(eng.tables[d].columns)
+                        for d in spec.joined_dims()}
+            idx = {d: effective_index(eng.indexes[d])
+                   for d in spec.joined_dims()}
+            dim_ops, fmeasure, size = _mega_operands(spec, fact_cols,
+                                                     dim_cols, idx)
+            got = fused.fn(dim_ops, fmeasure, num_segments=size)
+            e = max_err(got, fused_plain_chunked(dim_ops, fmeasure, size))
+            err["fused_query"] = max(err["fused_query"], e)
+            if e:
+                raise AssertionError(f"fused_query {q} ({label}) differs "
+                                     f"from its plain version by {e}")
+            ms[q] = event_ms(lambda: fused.fn(dim_ops, fmeasure,
+                                              num_segments=size),
+                             KERNEL_REPS)
+            if q == TIMED_QUERY and "fused_query" not in rows:
+                moved = nbytes(*(t for ops in dim_ops for t in ops),
+                               fmeasure) + 4 * size
+                w = dim_ops[0][2].shape[1]
+                b_ms, b_by = bound(moved, n_fact * len(dim_ops) * (2 * w + 8))
+                rows["fused_query"] = {
+                    "shape": f"{q}: {n_fact} rows, {len(dim_ops)} dims, "
+                             f"{size} segments", "bytes": moved,
+                    "ms": ms[q],
+                    "plain_ms": event_ms(lambda: fused_plain_chunked(
+                        dim_ops, fmeasure, size), PLAIN_REPS),
+                    "bound_ms": b_ms, "bound_by": b_by}
+            del dim_ops, fmeasure, got
+        log(f"[parity] fused_query on all {len(names)} queries' operands "
+            f"({label}): bit-identical")
+        log(f"[kernel] fused_query ms per launch by query ({label}): "
+            f"{json.dumps({q: round(v, 4) for q, v in ms.items()})}")
+        return ms
+
+    check_fused(engine, "static indexes")
     torch.cuda.empty_cache()
 
     # -- 4. main path: the four paths, counted --------------------------------
     baseline = SSBEngine(tables, policy=ExecutionPolicy(mode="baseline"))
 
-    def drive():
-        """Run the four paths; returns ({path: {q: result}}, {path: {q: s}})."""
+    def drive_paths(eng, paths):
+        """Run ``eng``'s named paths over the 13 queries; returns
+        ({path: {q: result}}, {path: {q: seconds}}).  "cached" is
+        ``run_all`` from an empty probe cache (its wall under
+        "cached_suite"), "cached_warm" the per-query tails on the filled
+        cache, "cold" and "mega" the per-query cold and mega runs."""
         res, wall = {}, {}
 
         def timed(path, q, fn):
@@ -272,104 +349,268 @@ def main() -> int:
             wall.setdefault(path, {})[q] = time.perf_counter() - t
             res.setdefault(path, {})[q] = out
 
-        engine.invalidate_probe_cache()
-        t = time.perf_counter()
-        res["cached"] = engine.run_all(fusion="composed")
-        sync()
-        wall["cached_suite"] = time.perf_counter() - t
-        for q in names:  # warm cache: the per-query tails alone
-            timed("cached_warm", q, lambda: engine.run(q))
-        for q in names:
-            timed("cold", q, lambda: engine.run(q, use_cache=False))
-        for q in names:
-            timed("mega", q, lambda: engine.run(q, fusion="mega"))
-        baseline.invalidate_probe_cache()
-        for q in names:
-            timed("baseline", q, lambda: baseline.run(q))
+        for path in paths:
+            if path == "cached":
+                eng.invalidate_probe_cache()
+                t = time.perf_counter()
+                res["cached"] = eng.run_all(fusion="composed")
+                sync()
+                wall["cached_suite"] = time.perf_counter() - t
+            for q in names:
+                if path == "cached_warm":
+                    timed(path, q, lambda: eng.run(q))
+                elif path == "cold":
+                    timed(path, q, lambda: eng.run(q, use_cache=False))
+                elif path == "mega":
+                    timed(path, q, lambda: eng.run(q, fusion="mega"))
         return res, wall
 
+    def drive():
+        """The four paths of phase 4."""
+        res, wall = drive_paths(engine, PATHS)
+        baseline.invalidate_probe_cache()
+        rb, wb = drive_paths(baseline, ("cached_warm",))
+        res["baseline"], wall["baseline"] = rb["cached_warm"], wb["cached_warm"]
+        return res, wall
+
+    def check_agree(res, ref, paths, label):
+        for q in names:
+            total, groups = ref[q]
+            for path in paths:
+                t2, g2 = res[path][q]
+                if int(t2) != int(total) or not torch.equal(g2, groups):
+                    raise AssertionError(f"{q}: {label} path {path} "
+                                         "disagrees")
+            if groups.shape[0] > 1 and int(groups.sum().to(torch.int32)) != \
+                    int(total):
+                raise AssertionError(f"{q}: total is not the sum of groups")
+
     drive()  # warm-up pass: allocator, first launches
-    for op in KERNEL_REGISTRY.values():
-        op.fn.launches = 0
     resident = torch.cuda.memory_allocated()
     torch.cuda.reset_peak_memory_stats()
-    res, wall = drive()
-    launches = {name: op.fn.launches for name, op in KERNEL_REGISTRY.items()}
+    (res, wall), launches = counted(drive)
     peak = torch.cuda.max_memory_allocated()
-    log(f"[launches] main path: {json.dumps(launches)}")
-    if launches != EXPECTED_LAUNCHES:
-        raise AssertionError(f"launch counts {launches} != expected "
-                             f"{EXPECTED_LAUNCHES}")
-
-    for q in names:
-        total, groups = res["cached"][q]
-        for path in ("cached_warm", "cold", "mega", "baseline"):
-            t2, g2 = res[path][q]
-            if int(t2) != int(total) or not torch.equal(g2, groups):
-                raise AssertionError(f"{q}: path {path} disagrees with the "
-                                     "cached path")
-        if groups.shape[0] > 1 and int(groups.sum().to(torch.int32)) != \
-                int(total):
-            raise AssertionError(f"{q}: total is not the sum of groups")
+    check_counts(launches, EXPECTED_LAUNCHES, "main path")
+    check_agree(res, res["cached"], ("cached_warm", "cold", "mega",
+                                     "baseline"), "static")
     log(f"[agree] all {len(names)} queries: cached == cold == mega == "
         "baseline, bit for bit")
 
-    # numpy checks (dimension PKs are row indices: the join is indexing)
+    # numpy checks: Q1.1's total and Q2.1's groups from the host arrays,
+    # joining through a key->row map per dimension (-1: joins nothing)
     host = {c: tables["lineorder"][c].cpu().numpy().astype(np.int64)
             for c in ("orderdate", "discount", "quantity", "extendedprice",
                       "partkey", "suppkey", "revenue")}
-    dim_np = {d: {c: v.cpu().numpy().astype(np.int64)
-                  for c, v in tables[d].columns.items()}
-              for d in ("date", "part", "supplier")}
 
     def wrap32(x):
         return ((np.asarray(x, np.int64) + 2**31) % 2**32 - 2**31)
 
-    m = ((dim_np["date"]["year"][host["orderdate"]] == 1993)
-         & (host["discount"] >= 1) & (host["discount"] <= 3)
-         & (host["quantity"] < 25))
-    want = wrap32((host["extendedprice"] * host["discount"])[m].sum())
-    if int(want) != int(res["cached"]["Q1.1"][0]):
-        raise AssertionError(f"Q1.1 {int(res['cached']['Q1.1'][0])} != "
-                             f"numpy {int(want)}")
-    pk, sk = host["partkey"], host["suppkey"]
-    m = ((dim_np["part"]["category"][pk] == 12)
-         & (dim_np["supplier"]["region"][sk] == 1))
-    gk = (dim_np["date"]["year"][host["orderdate"]] % 7) * 1000 \
-        + dim_np["part"]["brand"][pk] % 1000
-    groups = np.zeros(7000, np.int64)
-    np.add.at(groups, gk[m], host["revenue"][m])
-    if not np.array_equal(wrap32(groups),
-                          res["cached"]["Q2.1"][1].cpu().numpy()):
-        raise AssertionError("Q2.1 groups differ from numpy")
-    log("[numpy] Q1.1 total and Q2.1 groups match numpy on the host arrays")
-    del host, dim_np
+    def check_numpy(answers, eng, key_row, label):
+        dim_np = {d: {c: v.cpu().numpy().astype(np.int64)
+                      for c, v in eng.tables[d].columns.items()}
+                  for d in ("date", "part", "supplier")}
 
-    # -- 5. numbers ---------------------------------------------------------------
+        def rows_of(dim, fk):
+            r = key_row[dim][host[fk]] if key_row else host[fk]
+            return r >= 0, np.maximum(r, 0)
+
+        ok_d, rd = rows_of("date", "orderdate")
+        m = (ok_d & (dim_np["date"]["year"][rd] == 1993)
+             & (host["discount"] >= 1) & (host["discount"] <= 3)
+             & (host["quantity"] < 25))
+        want = wrap32((host["extendedprice"] * host["discount"])[m].sum())
+        if int(want) != int(answers["Q1.1"][0]):
+            raise AssertionError(f"Q1.1 ({label}) {int(answers['Q1.1'][0])} "
+                                 f"!= numpy {int(want)}")
+        ok_p, rp = rows_of("part", "partkey")
+        ok_s, rs = rows_of("supplier", "suppkey")
+        m = (ok_d & ok_p & ok_s & (dim_np["part"]["category"][rp] == 12)
+             & (dim_np["supplier"]["region"][rs] == 1))
+        gk = (dim_np["date"]["year"][rd] % 7) * 1000 \
+            + dim_np["part"]["brand"][rp] % 1000
+        groups = np.zeros(7000, np.int64)
+        np.add.at(groups, gk[m], host["revenue"][m])
+        if not np.array_equal(wrap32(groups),
+                              answers["Q2.1"][1].cpu().numpy()):
+            raise AssertionError(f"Q2.1 groups ({label}) differ from numpy")
+        log(f"[numpy] Q1.1 total and Q2.1 groups ({label}) match numpy on "
+            "the host arrays")
+
+    # dimension PKs are row indices: the static join is plain indexing
+    check_numpy(res["cached"], engine, None, "static")
+
+    # -- 5. stream path ---------------------------------------------------------
+    stream_engine = SSBEngine(tables, indexes=engine.indexes,
+                              policy=ExecutionPolicy(schedule="stream"))
+    drive_paths(stream_engine, ("cached", "cold"))  # warm-up pass
+    (res_s, wall_s), launches_s = counted(
+        lambda: drive_paths(stream_engine, ("cached", "cold")))
+    check_counts(launches_s, EXPECTED_STREAM, "stream path")
+    check_agree(res_s, res["cached"], ("cached", "cold"), "stream")
+    log(f"[agree] stream schedule: all {len(names)} queries, cached and "
+        "cold, equal the gathered engine's, bit for bit")
+    del stream_engine
+    torch.cuda.empty_cache()
+
+    # -- 6. mutation path ---------------------------------------------------------
+    def own_dims():
+        return {"lineorder": tables["lineorder"],
+                **{d: Table({c: v.clone() for c, v in tables[d].columns.items()})
+                   for d in DIM_PK}}
+
+    t0 = time.perf_counter()
+    mut = SSBEngine(own_dims())
+    twin = SSBEngine(own_dims(), policy=ExecutionPolicy(kernel="torch"))
+    sync()
+    log(f"[mutation] two engines (cuda, torch) built in "
+        f"{time.perf_counter() - t0:.3f} s")
+    torch.cuda.reset_peak_memory_stats()
+    rng = np.random.default_rng(args.seed + 1)
+    key_row = {}      # dim -> host key->row map, -1 where a key joins nothing
+    ingest_ms = {}
+    for dim in DIM_PK:
+        n = mut.tables[dim].n_rows
+        k = max(1, int(n * MUTATION_FRAC))
+        dels = rng.choice(n, k, replace=False).astype(np.int32)
+        ups = rng.choice(n, k, replace=False).astype(np.int32)
+        pays = rng.integers(0, n + k, k, dtype=np.int32)  # some past the end
+        src = rng.integers(0, n, k)
+        rows_new = {c: v.cpu().numpy()[src]
+                    for c, v in mut.tables[dim].columns.items()}
+        rows_new[DIM_PK[dim]] = np.arange(n, n + k, dtype=np.int32)
+        kr = np.arange(n + k, dtype=np.int64)
+        kr[dels] = -1
+        kr[ups] = pays
+        key_row[dim] = kr
+        for eng in (mut, twin):
+            calls = (("delete", lambda: eng.ingest(dim, dels, op="delete",
+                                                   auto_compact=False)),
+                     ("upsert", lambda: eng.ingest(dim, ups, pays,
+                                                   op="upsert",
+                                                   auto_compact=False)),
+                     ("append_rows", lambda: eng.append_rows(
+                         dim, rows_new, auto_compact=False)))
+            for label, call in calls:
+                secs = timed_call(call)
+                if eng is mut:
+                    ingest_ms[f"{dim}.{label}({k})"] = round(secs * 1e3, 3)
+        if mut.tables[dim].n_rows != n + k or int(kr.max()) >= n + k:
+            raise AssertionError(f"{dim}: the append did not cover every "
+                                 "re-pointed row")
+    occupancy = {d: {f: s[f] for f in ("n_entries", "n_tombstones",
+                                       "num_slots", "max_bucket_fill")}
+                 for d, s in mut.ingest_info()["deltas"].items()}
+    log(f"[mutation] live deltas: {json.dumps(occupancy)}")
+    if sorted(occupancy) != sorted(DIM_PK):
+        raise AssertionError("every dimension should hold a live delta")
+
+    # kernels against their plain versions on the live-delta operands
+    for dim in DIM_PK:
+        idx = effective_index(mut.indexes[dim])
+        tbl, dl = idx.table, idx.delta
+        fk = fact_cols[FACT_FK[dim]]
+        codes = encode(idx.dictionary, fk)
+        bids = hash_bucket(codes, tbl.num_buckets, tbl.hash_mode)
+        dmask = SSB_QUERIES[FILTER_QUERY[dim]].dim_filters[dim](
+            mut.tables[dim])
+        dbids = hash_bucket(fk, dl.num_buckets, dl.hash_mode)
+        ops = (tbl.keys, tbl.values, slot_predicate(tbl, dmask), codes, bids,
+               dl.keys, delta_slot_words(dl, dmask), fk, dbids)
+        check_probe_kernel("probe_filter_rows_delta", ops, (3, 4, 7, 8), dim,
+                           2 * tbl.bucket_width + 2 * dl.bucket_width + 8)
+        log(f"[parity] probe_filter_rows_delta on {dim} ({n_fact} probes, "
+            f"delta {tuple(dl.keys.shape)}, {FILTER_QUERY[dim]} predicate): "
+            "bit-identical")
+        del codes, bids, dbids, ops
+    check_fused(mut, "live deltas")
+    torch.cuda.empty_cache()
+
+    def drive_mut():
+        """The mutated engine's four paths plus the twin's cached path."""
+        r, w = drive_paths(mut, PATHS)
+        rt, wt = drive_paths(twin, ("cached",))
+        r["torch"], w["torch_suite"] = rt["cached"], wt["cached_suite"]
+        return r, w
+
+    drive_mut()  # warm-up pass
+    (res_live, wall_live), launches_live = counted(drive_mut)
+    check_counts(launches_live, EXPECTED_LIVE, "mutation path, live deltas")
+    check_agree(res_live, res_live["cached"],
+                ("cached_warm", "cold", "mega", "torch"), "live-delta")
+    log(f"[agree] live deltas: all {len(names)} queries: cached == cold == "
+        "mega == torch, bit for bit")
+    check_numpy(res_live["cached"], mut, key_row, "live deltas")
+
+    compact_ms = {}
+    for dim in DIM_PK:
+        compact_ms[dim] = round(timed_call(lambda: mut.compact(dim)) * 1e3, 3)
+        twin.compact(dim)
+        if mut.indexes[dim].delta is not None or \
+                twin.indexes[dim].delta is not None:
+            raise AssertionError(f"{dim}: delta left after compact")
+    log("[mutation] compacted: " + "; ".join(
+        f"{d}: {s.num_buckets}x{s.bucket_width} buckets, {s.n_unique} keys, "
+        f"{s.n_build} rows, grow retries {s.grow_retries}"
+        for d, s in mut.build_stats.items()))
+    drive_mut()  # warm-up pass
+    (res_c, wall_c), launches_c = counted(drive_mut)
+    peak_mut = torch.cuda.max_memory_allocated()
+    check_counts(launches_c, EXPECTED_LAUNCHES, "mutation path, compacted")
+    check_agree(res_c, res_live["cached"],
+                ("cached", "cached_warm", "cold", "mega", "torch"),
+                "compacted")
+    log(f"[agree] compacted: all {len(names)} queries: cached == cold == "
+        "mega == torch == the live-delta answers, bit for bit")
+    check_numpy(res_c["cached"], mut, key_row, "compacted")
+    del host
+
+    # -- 7. numbers ---------------------------------------------------------------
     log(f"[memory] resident before the main path (tables, indexes): "
         f"{resident} bytes; peak allocated over it: {peak} bytes "
-        f"({peak / 2**30:.3f} GiB)")
-    log(f"[wall] cached run_all suite (4 probes + 13 tails): "
-        f"{wall['cached_suite'] * 1e3:.3f} ms")
-    for path in ("cached_warm", "cold", "mega", "baseline"):
-        per = {q: round(wall[path][q] * 1e3, 3) for q in names}
-        log(f"[wall] {path} ms per query: {json.dumps(per)}; total "
-            f"{sum(wall[path].values()) * 1e3:.3f} ms")
+        f"({peak / 2**30:.3f} GiB); peak over the mutation phase: "
+        f"{peak_mut} bytes ({peak_mut / 2**30:.3f} GiB)")
+
+    def log_walls(label, wall, paths):
+        if "cached_suite" in wall:
+            log(f"[wall] {label} cached run_all suite (4 probes + 13 tails): "
+                f"{wall['cached_suite'] * 1e3:.3f} ms")
+        if "torch_suite" in wall:
+            log(f"[wall] {label} torch twin cached run_all suite: "
+                f"{wall['torch_suite'] * 1e3:.3f} ms")
+        for path in paths:
+            per = {q: round(wall[path][q] * 1e3, 3) for q in names}
+            log(f"[wall] {label} {path} ms per query: {json.dumps(per)}; "
+                f"total {sum(wall[path].values()) * 1e3:.3f} ms")
+
+    log_walls("static", wall, ("cached_warm", "cold", "mega", "baseline"))
+    log_walls("stream", wall_s, ("cold",))
+    log_walls("live-delta", wall_live, ("cached_warm", "cold", "mega"))
+    log_walls("compacted", wall_c, ("cached_warm", "cold", "mega"))
+    log(f"[ingest] ms per call (ops per batch): {json.dumps(ingest_ms)}")
+    log(f"[compact] ms per call: {json.dumps(compact_ms)}")
 
     for name, r in rows.items():
         log(f"[kernel] {name} at {r['shape']}: {r['ms']:.4f} ms/launch "
             f"(plain {r['plain_ms']:.4f} ms), moves {r['bytes']} bytes, "
             f"bound {r['bound_ms']:.4f} ms by {r['bound_by']} "
             f"({r['bound_ms'] / r['ms'] * 100:.1f}% of bound)")
+    # each kernel's launches on the path that drives it
+    path_launches = dict(launches,
+                         bucket_probe_stream=launches_s["bucket_probe_stream"],
+                         probe_filter_rows_delta=launches_live[
+                             "probe_filter_rows_delta"])
+    log(f"[script] {time.perf_counter() - t_script:.1f} s after the device "
+        "query")
 
     table = {"kernels": [
         {"name": name, "route": "cuda",
          "source": KERNEL_REGISTRY[name].source,
          "replaces": KERNEL_REGISTRY[name].replaces,
-         "launches": launches[name], "max_abs_err": err[name],
-         "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
-         "bound_by": r["bound_by"], "library_ms": None}
-        for name, r in rows.items()]}
+         "launches": path_launches[name], "max_abs_err": err[name],
+         "ms": rows[name]["ms"], "plain_ms": rows[name]["plain_ms"],
+         "bound_ms": rows[name]["bound_ms"],
+         "bound_by": rows[name]["bound_by"], "library_ms": None}
+        for name in KERNEL_REGISTRY]}
     print(json.dumps(table), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

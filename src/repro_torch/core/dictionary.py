@@ -3,9 +3,9 @@
 The dictionary is a sorted int32 array padded with ``DICT_PAD``: encode is
 one ``searchsorted``, decode one gather.  Dense consecutive codes are what
 lets the identity hash (low index bits) spread keys evenly over buckets.
-``codes`` (an explicit slot -> code map) appears only once the mutation
-path extends a dictionary; an index carried over from the JAX package may
-already hold one.
+``codes`` (an explicit slot -> code map) appears once compaction extends
+a dictionary (``extend_dictionary``): existing keys keep their codes, so
+the hash table's bucket layout survives.
 """
 from __future__ import annotations
 
@@ -83,6 +83,44 @@ def decode(d: Dictionary, codes: torch.Tensor) -> torch.Tensor:
         key_by_code = key_by_code[:d.capacity]
     return torch.where(ok, key_by_code[codes.clamp(0, d.capacity - 1).long()],
                        DICT_PAD)
+
+
+def extend_dictionary(d: Dictionary, new_keys: np.ndarray
+                      ) -> tuple[Dictionary, np.ndarray]:
+    """Merge sorted-unique ``new_keys`` (none already present) into ``d``.
+
+    The incremental dictionary maintenance behind delta compaction: an
+    O(n + b) positional merge on the host instead of re-sorting the key
+    column.  Existing codes are untouched; new keys receive codes
+    ``n .. n+b-1`` in their sorted order.  Returns the grown dictionary,
+    on ``d``'s device, and the new keys' codes.  Capacity is padded to a
+    power of two, as in the JAX package.
+    """
+    new_keys = np.asarray(new_keys, np.int32)
+    b = int(new_keys.shape[0])
+    n = int(d.n)
+    if b == 0:
+        return d, np.zeros((0,), np.int32)
+    if not np.all(new_keys[1:] > new_keys[:-1]):
+        raise ValueError("new keys must be sorted unique")
+    old_keys = d.keys[:n].cpu().numpy()
+    old_codes = (np.arange(n, dtype=np.int32) if d.codes is None
+                 else d.codes[:n].cpu().numpy())
+    new_codes = n + np.arange(b, dtype=np.int32)
+    # stable two-way merge positions (the key sets are disjoint)
+    pos_old = np.arange(n) + np.searchsorted(new_keys, old_keys)
+    pos_new = np.searchsorted(old_keys, new_keys) + np.arange(b)
+    cap = max(d.capacity, 1 << (n + b - 1).bit_length())
+    keys_out = np.full((cap,), DICT_PAD, np.int32)
+    codes_out = np.arange(cap, dtype=np.int32)  # pad slots map to themselves
+    keys_out[pos_old] = old_keys
+    keys_out[pos_new] = new_keys
+    codes_out[pos_old] = old_codes
+    codes_out[pos_new] = new_codes
+    dev = d.keys.device
+    return Dictionary(keys=torch.as_tensor(keys_out, device=dev),
+                      n=torch.tensor(n + b, dtype=torch.int32, device=dev),
+                      codes=torch.as_tensor(codes_out, device=dev)), new_codes
 
 
 def encode_np(d: Dictionary, raw_keys: np.ndarray) -> np.ndarray:

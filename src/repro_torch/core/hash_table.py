@@ -190,3 +190,50 @@ def table_entries(table: JSPIMTable
     valid = out_pos < total
     return (torch.where(valid, flat_k[src_c], EMPTY_KEY),
             torch.where(valid, val, 0), valid)
+
+
+# ---------------------------------------------------------------------------
+# Update commands (§3.2.3): functional versions of the PIM update interface.
+# Each returns a new table; the input's planes are not written, so whoever
+# still holds the old table keeps seeing it unchanged.
+# ---------------------------------------------------------------------------
+
+
+def _i32(v, device) -> torch.Tensor:
+    return torch.as_tensor(v, device=device).to(torch.int32)
+
+
+def entry_update(table: JSPIMTable, bucket, slot, key,
+                 value_word) -> JSPIMTable:
+    """Entry Update: overwrite one (bucket, slot) cell, like a DRAM write."""
+    keys, values = table.keys.clone(), table.values.clone()
+    dev = keys.device
+    keys[bucket, slot] = _i32(key, dev)
+    values[bucket, slot] = _i32(value_word, dev)
+    return dataclasses.replace(table, keys=keys, values=values)
+
+
+def index_update(table: JSPIMTable, key, new_payload) -> JSPIMTable:
+    """Index Update: search for ``key``; on a match update its payload
+    (the word's tag bit is kept)."""
+    dev = table.keys.device
+    k = _i32(key, dev).reshape(())
+    b = hash_bucket(k, table.num_buckets, table.hash_mode).long()
+    match = table.keys[b] == k
+    slot = torch.argmax(match.to(torch.uint8))
+    old = table.values[b, slot]
+    word = (_i32(new_payload, dev) << 1) | (old & 1)
+    values = table.values.clone()
+    values[b, slot] = torch.where(match.any(), word, old)
+    return dataclasses.replace(table, values=values)
+
+
+def table_update(table: JSPIMTable, bucket_ids, new_keys,
+                 new_values) -> JSPIMTable:
+    """Table Update: burst-write whole buckets (rows) at once."""
+    keys, values = table.keys.clone(), table.values.clone()
+    dev = keys.device
+    bids = torch.as_tensor(bucket_ids, device=dev).long()
+    keys[bids] = _i32(new_keys, dev)
+    values[bids] = _i32(new_values, dev)
+    return dataclasses.replace(table, keys=keys, values=values)

@@ -7,8 +7,8 @@ knob has no counterpart.
 
 Values the port does not run yet are refused at construction, naming the
 slice that brings them: the planner-driven ``"auto"`` schedule and fusion
-would price a CUDA backend with CPU costs, and the other probe schedules
-are not ported.
+would price a CUDA backend with CPU costs, and the deduped and hot/cold
+probe schedules are not ported.
 """
 from __future__ import annotations
 
@@ -16,14 +16,12 @@ import dataclasses
 
 MODES = ("jspim", "baseline", "pid")
 KERNELS = ("torch", "cuda")
-SCHEDULES = ("gathered",)
+SCHEDULES = ("gathered", "stream")
 FUSIONS = ("mega", "composed")
 
 _NOT_PORTED = {
     ("schedule", "auto"): "the planner slice (ROADMAP Queue 1 item 5)",
     ("fusion", "auto"): "the planner slice (ROADMAP Queue 1 item 5)",
-    ("schedule", "stream"): "the bucket_probe_stream kernel (ROADMAP "
-                            "Queue 2 item 5)",
     ("schedule", "deduped"): "the probe-schedule slice (ROADMAP Queue 1 "
                              "item 3)",
     ("schedule", "hot_cold"): "the probe-schedule slice (ROADMAP Queue 1 "
@@ -56,7 +54,10 @@ class ExecutionPolicy:
                  "pid" partitioned-join emulation.
     kernel    -- probe implementation: "cuda" hand-written kernels (the
                  plain versions on CPU tensors), "torch" gather math.
-    schedule  -- probe schedule; only "gathered" is ported.
+    schedule  -- probe schedule: "gathered" (``probe_rows``, one thread per
+                 probe) or "stream" (``bucket_probe_stream``, W lanes of a
+                 warp per probe); filtered cold probes take the filter
+                 kernels under either.
     fusion    -- "mega" one fused_query launch per query, "composed" the
                  per-stage pipeline.
     use_cache -- default for the cross-query probe cache on ``run``.

@@ -12,6 +12,7 @@ from typing import Mapping
 import numpy as np
 import torch
 
+from repro_torch.core.delta import DeltaTable
 from repro_torch.core.dictionary import Dictionary
 from repro_torch.core.hash_table import JSPIMTable
 from repro_torch.engine.join import BuildStats, DimIndex
@@ -35,7 +36,10 @@ def dim_index_from_numpy(arrays: Mapping[str, Mapping], stats: BuildStats
     ``arrays["dictionary"]`` holds ``keys``, ``n`` and ``codes`` (``None``
     for a rank-coded dictionary); ``arrays["table"]`` holds ``keys``,
     ``values``, ``dup_offsets``, ``dup_indices``, ``group_count``,
-    ``n_unique``, ``n_build``, ``overflow`` and ``hash_mode``.
+    ``n_unique``, ``n_build``, ``overflow`` and ``hash_mode``; the
+    optional ``arrays["delta"]`` (absent or ``None`` when the index has no
+    delta) holds a delta buffer's ``keys``, ``words``, ``fill``,
+    ``n_ops``, ``overflow`` (bool) and ``hash_mode``.
     """
     def t(a):
         return torch.as_tensor(np.array(a, np.int32), device=device)
@@ -46,4 +50,12 @@ def dim_index_from_numpy(arrays: Mapping[str, Mapping], stats: BuildStats
         codes=None if d.get("codes") is None else t(d["codes"]))
     table = JSPIMTable(**{k: t(tb[k]) for k in _TABLE_ARRAYS},
                        hash_mode=str(tb["hash_mode"]))
-    return DimIndex(dictionary=dictionary, table=table, stats=stats)
+    dl = arrays.get("delta")
+    delta = None if dl is None else DeltaTable(
+        keys=t(dl["keys"]), words=t(dl["words"]), fill=t(dl["fill"]),
+        n_ops=t(dl["n_ops"]),
+        overflow=torch.as_tensor(np.array(dl["overflow"], bool),
+                                 device=device),
+        hash_mode=str(dl["hash_mode"]))
+    return DimIndex(dictionary=dictionary, table=table, stats=stats,
+                    delta=delta)

@@ -1,10 +1,13 @@
 """JSPIM join integration for the column-store engine.
 
-PyTorch port of the static part of ``repro.engine.join``.  A ``DimIndex``
-is the paper's persistent auxiliary structure: dictionary + hash table +
-duplication list, built once per (dimension table, key column).  Probes run
-through the hand-written CUDA kernels (``impl="cuda"``; their plain
-versions on CPU tensors) or the plain gather math (``impl="torch"``).
+PyTorch port of ``repro.engine.join`` without the fact-side tail probes
+and the sharded probe.  A ``DimIndex`` is the paper's persistent auxiliary
+structure: dictionary + hash table + duplication list, built once per
+(dimension table, key column) and maintained across queries (§3.2.3):
+``ingest_index`` buffers ops in a delta side-table, probes overlay it, and
+``compact_index`` folds it back.  Probes run through the hand-written CUDA
+kernels (``impl="cuda"``; their plain versions on CPU tensors) or the
+plain gather math (``impl="torch"``).
 
 Bucket geometry: ``build_dim_index`` targets a load factor and doubles the
 bucket count until the build drops nothing.  The default bucket width is 8
@@ -12,20 +15,28 @@ on every device: on the card one bucket's keys are one 32-byte sector, and
 the CPU tests build the same geometry as the JAX package on the CPU.  (The
 JAX package picks 128 on a TPU, one VMEM lane row.)
 
-The delta overlay, ingest and compaction wait for the mutation slice; the
-fact-skew statistics wait for the planner slice.
+The fact-skew statistics wait for the planner slice.
 """
 from __future__ import annotations
 
 import dataclasses
 
+import numpy as np
 import torch
 
-from repro_torch.core.dictionary import Dictionary, build_dictionary, encode
+from repro_torch.core.delta import (TOMBSTONE, DeltaTable, apply_batch,
+                                    delta_entries, delta_is_empty,
+                                    empty_delta, merge_entries,
+                                    suggest_delta_buckets)
+from repro_torch.core.dictionary import (NO_CODE, Dictionary,
+                                         build_dictionary, encode, encode_np,
+                                         extend_dictionary)
 from repro_torch.core.hash_table import (JSPIMTable, build_table,
-                                         suggest_num_buckets)
-from repro_torch.core.lookup import ProbeResult, probe
-from repro_torch.kernels.ops import (probe_table, probe_table_filtered,
+                                         suggest_num_buckets, table_entries)
+from repro_torch.core.lookup import ProbeResult, overlay_delta, probe
+from repro_torch.kernels.ops import (delta_slot_words, probe_table,
+                                     probe_table_filtered,
+                                     probe_table_filtered_delta,
                                      slot_predicate)
 
 DEFAULT_BUCKET_WIDTH = 8
@@ -53,8 +64,10 @@ class DimIndex:
     dictionary: Dictionary
     table: JSPIMTable
     stats: BuildStats | None = None
-    # streaming-ingest side table: always None until the mutation slice
-    delta: None = None
+    # streaming-ingest side table (raw-key space; None until the first
+    # ingest): probes overlay it after the main table, compact_index folds
+    # it back
+    delta: DeltaTable | None = None
 
 
 def build_dim_index(dim_keys: torch.Tensor, *, bucket_width: int | None = None,
@@ -84,27 +97,163 @@ def build_dim_index(dim_keys: torch.Tensor, *, bucket_width: int | None = None,
     return DimIndex(dictionary=d, table=tbl, stats=stats)
 
 
+# ---------------------------------------------------------------------------
+# Streaming ingest: delta-buffer maintenance and compaction
+# ---------------------------------------------------------------------------
+
+
+def _as_i32(x, device) -> torch.Tensor:
+    if torch.is_tensor(x):
+        return x.to(device=device, dtype=torch.int32)
+    return torch.as_tensor(np.asarray(x, np.int32), device=device)
+
+
+def ingest_index(index: DimIndex, keys, payloads=None, *,
+                 op: str = "upsert") -> DimIndex:
+    """Absorb a batch of ops into ``index``'s delta without rebuilding.
+
+    ``keys`` are raw dimension keys (new keys have no dictionary code
+    until compaction).  ``op``: "insert" / "upsert" (``payloads`` are the
+    new dimension-row indices; at the delta level both overwrite) or
+    "delete" (tombstones; ``payloads`` ignored).  Lossless: a delta bucket
+    overflow doubles the delta geometry and re-applies.
+    """
+    dev = index.table.keys.device
+    keys = _as_i32(keys, dev)
+    if op in ("insert", "upsert"):
+        if payloads is None:
+            raise ValueError(f"op={op!r} needs payloads (dim-row indices)")
+        words = _as_i32(payloads, dev) << 1
+    elif op == "delete":
+        words = torch.full(keys.shape, TOMBSTONE, dtype=torch.int32,
+                           device=dev)
+    else:
+        raise ValueError(f"unknown ingest op {op!r}")
+
+    delta = index.delta
+    if delta is None:
+        n_build = (index.stats.n_build if index.stats is not None
+                   else int(index.table.num_buckets))
+        delta = empty_delta(
+            suggest_delta_buckets(n_build, index.table.bucket_width),
+            index.table.bucket_width, device=dev)
+    new = apply_batch(delta, keys, words)
+    retries = 0
+    while bool(new.overflow):  # grow + re-apply: ingest never drops ops
+        if retries >= 16:  # adversarial keys: fail loudly, do not spin
+            raise RuntimeError(
+                f"delta bucket overflow persists after {retries} geometry "
+                f"doublings ({delta.num_buckets} buckets)")
+        retries += 1
+        ok, ow, live = delta_entries(delta)
+        grown = apply_batch(empty_delta(delta.num_buckets * 2,
+                                        delta.bucket_width, delta.hash_mode,
+                                        device=dev), ok[live], ow[live])
+        delta, new = grown, apply_batch(grown, keys, words)
+    return dataclasses.replace(index, delta=new)
+
+
+def compact_index(index: DimIndex, *,
+                  max_grow_retries: int = 8) -> DimIndex:
+    """Fold the delta back into the main table.
+
+    New raw keys take fresh dictionary codes through a positional merge
+    (``extend_dictionary``: existing codes stay valid, so the table's
+    bucket layout survives), then ``merge_entries`` applies deletes,
+    updates and inserts bucket-locally.  Only when a main bucket runs out
+    of empty slots does it rebuild, with doubled geometry, from the
+    merged table's live entries plus the inserts that did not fit.
+
+    The result has fresh planes and ``index`` stays unchanged, so every
+    holder of ``index`` (another engine, a caller) reads what it read.
+    """
+    if index.delta is None:
+        return index
+    dk, dw, live = (x.cpu().numpy() for x in delta_entries(index.delta))
+    if not live.any():
+        return dataclasses.replace(index, delta=None)
+    # the merge below is O(live entries), not O(delta capacity)
+    dk, dw = dk[live], dw[live]
+    is_tomb = dw == TOMBSTONE
+    codes0 = encode_np(index.dictionary, dk)
+    fresh = (codes0 == NO_CODE) & ~is_tomb
+    d2, _ = extend_dictionary(index.dictionary, np.sort(dk[fresh]))
+    codes = encode_np(d2, dk)
+
+    table, grow_retries = index.table, 0
+    dev = table.keys.device
+    merged, needs_grow = merge_entries(
+        table, _as_i32(codes, dev), _as_i32(dw, dev),
+        torch.ones(dk.shape, dtype=torch.bool, device=dev))
+    if bool(needs_grow):
+        # rebuild from the merged table's live multiset: the merge applied
+        # every delete and update and every insert that fit, so what is
+        # missing is exactly the live non-tombstone codes absent from it
+        ek, ev, valid = (x.cpu().numpy() for x in table_entries(merged))
+        ek, ev = ek[valid], ev[valid]
+        unplaced = ~is_tomb & (codes >= 0) & ~np.isin(codes, ek)
+        all_codes = np.concatenate([ek, codes[unplaced]])
+        all_vals = np.concatenate([ev, dw[unplaced] >> 1])
+        nb = table.num_buckets
+        while True:
+            nb *= 2
+            grow_retries += 1
+            merged = build_table(_as_i32(all_codes, dev),
+                                 _as_i32(all_vals, dev), num_buckets=nb,
+                                 bucket_width=table.bucket_width,
+                                 hash_mode=table.hash_mode)
+            if int(merged.overflow) == 0 or grow_retries >= max_grow_retries:
+                break
+        if int(merged.overflow) > 0:  # compaction never drops entries
+            raise RuntimeError(
+                f"rebuild still overflows after {grow_retries} doublings "
+                f"({nb} buckets x {table.bucket_width})")
+
+    stats = index.stats
+    if stats is not None:
+        stats = dataclasses.replace(
+            stats, num_buckets=merged.num_buckets,
+            n_unique=int(merged.n_unique), n_build=int(merged.n_build),
+            overflow=int(merged.overflow),
+            grow_retries=stats.grow_retries + grow_retries)
+    return DimIndex(dictionary=d2, table=merged, stats=stats, delta=None)
+
+
 def effective_index(index: DimIndex) -> DimIndex:
-    """The index probes run against.  The JAX package strips an empty delta
-    here; the port's indexes carry none, and a live one cannot arrive
-    before the mutation slice."""
-    if index.delta is not None:
-        raise NotImplementedError("delta overlays arrive with the mutation "
-                                  "slice (ROADMAP Queue 1 item 6)")
+    """The index probes run against: an all-empty delta is stripped, so
+    that probes keep their no-delta path."""
+    if index.delta is not None and delta_is_empty(index.delta):
+        return dataclasses.replace(index, delta=None)
     return index
 
 
 def lookup(index: DimIndex, fact_keys: torch.Tensor, *,
-           impl: str = "cuda") -> ProbeResult:
-    """Probe fact keys (gathered schedule); for PK dimensions the payload
-    is the dimension-row index."""
+           impl: str = "cuda", schedule: str = "gathered") -> ProbeResult:
+    """Probe fact keys; for PK dimensions the payload is the dimension-row
+    index.
+
+    ``schedule="gathered"`` probes through ``probe_rows`` on ``impl="cuda"``
+    and the plain gather on ``"torch"``; ``"stream"`` probes through
+    ``bucket_probe_stream`` whatever ``impl`` is (as the JAX package's
+    stream schedule always runs its Pallas kernel).  A live delta is
+    overlaid after any schedule, probed with the raw fact keys: keys
+    ingested since the last compaction have no dictionary code yet.
+    """
+    if impl not in ("cuda", "torch"):
+        raise ValueError(f"unknown impl {impl!r}")
     index = effective_index(index)
     codes = encode(index.dictionary, fact_keys)
-    if impl == "cuda":
-        return probe_table(index.table, codes)
-    if impl == "torch":
-        return probe(index.table, codes)
-    raise ValueError(f"unknown impl {impl!r}")
+    if schedule == "stream":
+        pr = probe_table(index.table, codes, schedule="stream")
+    elif schedule != "gathered":
+        raise ValueError(f"unknown schedule {schedule!r}")
+    elif impl == "cuda":
+        pr = probe_table(index.table, codes)
+    else:
+        pr = probe(index.table, codes)
+    if index.delta is not None:
+        pr = overlay_delta(pr, index.delta, fact_keys)
+    return pr
 
 
 def lookup_filtered(index: DimIndex, fact_keys: torch.Tensor,
@@ -114,18 +263,26 @@ def lookup_filtered(index: DimIndex, fact_keys: torch.Tensor,
 
     ``dim_mask`` is a boolean per dimension row.  On ``impl="cuda"`` the
     predicate is pre-evaluated per hash-table slot and applied inside the
-    ``probe_filter_rows`` kernel; on ``"torch"`` it filters the plain
-    probe's rows afterwards.  Duplication-group slots pass through (PK
+    ``probe_filter_rows`` kernel, or, with a live delta, inside
+    ``probe_filter_rows_delta``, which also overlays the predicate-folded
+    delta words.  On ``"torch"`` it is the plain probe, the delta overlay,
+    then the row filter.  Duplication-group slots pass through (PK
     dimensions have none).
     """
     index = effective_index(index)
     codes = encode(index.dictionary, fact_keys)
     if impl == "cuda":
         pred = slot_predicate(index.table, dim_mask)
+        if index.delta is not None:
+            dwords = delta_slot_words(index.delta, dim_mask)
+            return probe_table_filtered_delta(index.table, codes, pred,
+                                              index.delta, fact_keys, dwords)
         return probe_table_filtered(index.table, codes, pred)
     if impl != "torch":
         raise ValueError(f"unknown impl {impl!r}")
     pr = probe(index.table, codes)
+    if index.delta is not None:
+        pr = overlay_delta(pr, index.delta, fact_keys)
     n = dim_mask.shape[0]
     row_ok = dim_mask[pr.payload.clamp(0, n - 1).long()] \
         & (pr.payload >= 0) & (pr.payload < n)

@@ -1,6 +1,7 @@
 """The 13 SSB queries (Q1.1-Q4.3), spec-driven, with pluggable join engine.
 
-PyTorch port of the read side of ``repro.engine.queries``.  Modes:
+PyTorch port of ``repro.engine.queries``: the read side and the dimension
+mutation path.  Modes:
 
   * "jspim"    -- joins through the prebuilt ``DimIndex`` probe; dimension
                   predicates applied while streaming results back (§4.1.5).
@@ -17,26 +18,40 @@ Execution (eager; no compiled programs):
     dimension is probed once per engine (``probe_rows``) and the
     ``(found, dim_row)`` pair is reused by every query touching it.
   * **Cold composed path** -- ``run(use_cache=False)`` probes per query;
-    filtered dimensions go through ``probe_filter_rows``.
+    filtered dimensions go through ``probe_filter_rows`` (or, with a live
+    delta, ``probe_filter_rows_delta``).
   * **Mega path** -- ``run(fusion="mega")`` answers a query with one
-    ``fused_query`` launch over per-slot attribute planes.
+    ``fused_query`` launch over per-slot attribute planes, the delta's
+    included.
 
-Durability, mutation hooks, epoch snapshots, ingest and the planner wait
-for later slices.
+Mutation (§3.2.3): ``ingest`` / ``append_rows`` buffer dimension ops in a
+per-dimension delta, ``compact`` folds it back, and the update commands
+rewrite table cells; each drops the dimension's cached probes.  The fact
+append, durability, mutation hooks, epoch snapshots and the probe-schedule
+planner wait for later slices.  Compaction planning is priced only on a
+CPU engine: on a CUDA engine ``compaction_plan`` and
+``ingest(auto_compact=True)`` raise ``NotImplementedError`` until the
+planner slice, and the caller compacts with ``compact(dim)``.
 """
 from __future__ import annotations
 
 import dataclasses
 from typing import Callable
 
+import numpy as np
 import torch
 
+from repro_torch.core import costmodel
+from repro_torch.core import hash_table as _ht
+from repro_torch.core.delta import TOMBSTONE, delta_is_empty, delta_stats
 from repro_torch.core.dictionary import encode
 from repro_torch.core.hash_table import hash_bucket
+from repro_torch.core.planner import CompactionPlan, plan_compaction
 from repro_torch.core.policy import ExecutionPolicy, check_value
 from repro_torch.engine import baselines
 from repro_torch.engine.join import (DimIndex, build_dim_index,
-                                     effective_index, lookup, lookup_filtered)
+                                     compact_index, effective_index,
+                                     ingest_index, lookup, lookup_filtered)
 from repro_torch.engine.table import Table, resolve_device
 from repro_torch.kernels.fused_query import fused_query
 from repro_torch.kernels.ref import segment_sum
@@ -45,6 +60,28 @@ FACT_FK = {"customer": "custkey", "supplier": "suppkey",
            "part": "partkey", "date": "orderdate"}
 DIM_PK = {"customer": "custkey", "supplier": "suppkey",
           "part": "partkey", "date": "datekey"}
+
+
+def _check_batch_col(arg: str, values, *,
+                     expect_len: int | None = None) -> np.ndarray:
+    """API-boundary validation of one host batch column: a 1-D integer
+    array in the int32 range, of ``expect_len`` rows when given.  Raises
+    ``ValueError`` naming the argument."""
+    a = values.cpu().numpy() if torch.is_tensor(values) else np.asarray(values)
+    if a.dtype.kind not in "iu":
+        raise ValueError(f"{arg}: expected an integer array, got dtype "
+                         f"{a.dtype}")
+    if a.ndim != 1:
+        raise ValueError(f"{arg}: expected a 1-D array, got shape "
+                         f"{tuple(a.shape)}")
+    if a.size and (int(a.min()) < -(2 ** 31)
+                   or int(a.max()) > 2 ** 31 - 1):
+        raise ValueError(f"{arg}: values exceed the engine's int32 key "
+                         "space")
+    if expect_len is not None and a.shape[0] != expect_len:
+        raise ValueError(f"{arg}: length {a.shape[0]} != {expect_len} "
+                         "(ragged batch)")
+    return a.astype(np.int32, copy=False)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -190,9 +227,12 @@ def _mega_operands(spec: QuerySpec, fact_cols, dim_cols, indexes):
     Per joined dimension: the per-slot *attribute plane* --
     ``(group_key*stride << 1) | pred_bit`` for unique in-range payloads,
     -1 for dup/invalid slots -- over the hash table, plus the probe codes
-    and bucket ids; the kernel gathers the bucket rows itself.  Strides are
-    suffix products of the group cardinalities, so the composite key is a
-    plain sum across dimensions, equal to ``_filter_aggregate``'s.
+    and bucket ids; the kernel gathers the bucket rows itself.  With a live
+    delta, the same plane over the delta's words (tombstones -1), the raw
+    fact keys and the delta bucket ids follow, as the 8-tuple
+    ``fused_query`` takes.  Strides are suffix products of the group
+    cardinalities, so the composite key is a plain sum across dimensions,
+    equal to ``_filter_aggregate``'s.
     """
     fact = Table(fact_cols)
     measure = spec.measure(fact).to(torch.int32)
@@ -208,22 +248,35 @@ def _mega_operands(spec: QuerySpec, fact_cols, dim_cols, indexes):
         strides[dim] = (col, card, rem)
     dim_ops = []
     for dim in spec.joined_dims():
-        table = indexes[dim].table
+        idx = indexes[dim]
         dt = Table(dim_cols[dim])
         n = dt.n_rows
-        payload = table.values >> 1
-        clip = _clip_rows(payload, n)
-        ok = (payload >= 0) & (payload < n) & ((table.values & 1) == 0)
-        p = (spec.dim_filters[dim](dt)[clip].to(torch.int32)
-             if dim in spec.dim_filters else torch.ones_like(payload))
-        g = torch.zeros_like(payload)
-        if dim in strides:
-            col, card, stride = strides[dim]
-            g = torch.remainder(dt[col][clip], card) * stride
-        attr = torch.where(ok, (g << 1) | p, -1).to(torch.int32)
-        codes = encode(indexes[dim].dictionary, fact_cols[FACT_FK[dim]])
+        pred = spec.dim_filters[dim](dt) if dim in spec.dim_filters else None
+
+        def attr_of(words, invalid, dim=dim, dt=dt, n=n, pred=pred):
+            payload = words >> 1
+            clip = _clip_rows(payload, n)
+            ok = (payload >= 0) & (payload < n) & ~invalid
+            p = (pred[clip].to(torch.int32) if pred is not None
+                 else torch.ones_like(payload))
+            g = torch.zeros_like(payload)
+            if dim in strides:
+                col, card, stride = strides[dim]
+                g = torch.remainder(dt[col][clip], card) * stride
+            return torch.where(ok, (g << 1) | p, -1).to(torch.int32)
+
+        table = idx.table
+        fk = fact_cols[FACT_FK[dim]]
+        codes = encode(idx.dictionary, fk)
         bids = hash_bucket(codes, table.num_buckets, table.hash_mode)
-        dim_ops.append((codes, bids, table.keys, attr))
+        ops = (codes, bids, table.keys,
+               attr_of(table.values, (table.values & 1) == 1))
+        if idx.delta is not None:
+            d = idx.delta
+            raw = fk.to(torch.int32)
+            ops += (raw, hash_bucket(raw, d.num_buckets, d.hash_mode),
+                    d.keys, attr_of(d.words, d.words == TOMBSTONE))
+        dim_ops.append(ops)
     return tuple(dim_ops), measure, size
 
 
@@ -246,21 +299,28 @@ class _QueryRunner:
     def probe_impl(self) -> str:
         return self.policy.kernel
 
+    @property
+    def schedule(self) -> str:
+        return self.policy.schedule
+
     def probe_dim(self, dim: str) -> tuple[torch.Tensor, torch.Tensor]:
         raise NotImplementedError
 
     # -- join primitive: (found, dim_row) per fact row ---------------------
     def _join(self, dim: str, dim_mask: torch.Tensor | None = None
               ) -> tuple[torch.Tensor, torch.Tensor]:
-        """Probe one dimension.  With ``dim_mask`` on the CUDA kernel the
-        predicate is folded into the probe (``probe_filter_rows``)."""
+        """Probe one dimension under the policy's schedule.  With
+        ``dim_mask`` on the CUDA kernel the predicate is folded into the
+        probe (``probe_filter_rows``, or ``probe_filter_rows_delta`` with a
+        live delta) whatever the schedule, as in the JAX package."""
         fk = self.tables["lineorder"][FACT_FK[dim]]
         if self.mode == "jspim":
             index = self.indexes[dim]
             if dim_mask is not None and self.probe_impl == "cuda":
                 pr = lookup_filtered(index, fk, dim_mask, impl="cuda")
             else:
-                pr = lookup(index, fk, impl=self.probe_impl)
+                pr = lookup(index, fk, impl=self.probe_impl,
+                            schedule=self.schedule)
             return pr.found, torch.where(pr.found, pr.payload, -1)
         dk = self.tables[dim][DIM_PK[dim]]
         if self.mode == "baseline":
@@ -354,7 +414,9 @@ class SSBEngine(_QueryRunner):
             if t.device != self.device:
                 raise ValueError(f"table {name!r} lives on {t.device}, the "
                                  f"engine runs on {self.device}")
-        self.tables = tables
+        # own dicts: ``append_rows`` and ``compact`` replace entries, and
+        # must not reach another engine built from the same mappings
+        self.tables = dict(tables)
         self.indexes: dict[str, DimIndex] = {}
         if self.mode == "jspim":
             if indexes is not None:
@@ -368,6 +430,8 @@ class SSBEngine(_QueryRunner):
         self._hits = 0
         self._misses = 0
         self._invalidations = 0
+        self._ingest_batches = 0
+        self._compactions = 0
 
     @property
     def build_stats(self):
@@ -403,3 +467,180 @@ class SSBEngine(_QueryRunner):
         return {"hits": self._hits, "misses": self._misses,
                 "invalidations": self._invalidations,
                 "cached_dims": sorted(self._probe_cache)}
+
+    # -- §3.2.3 update commands (invalidate the affected dim's probes) -----
+    def _replace_table(self, dim: str, table) -> None:
+        self.indexes[dim] = dataclasses.replace(self.indexes[dim],
+                                                table=table)
+        self.invalidate_probe_cache(dim)
+
+    def entry_update(self, dim: str, bucket, slot, key, value_word) -> None:
+        """Entry Update: overwrite one (bucket, slot) cell of ``dim``.
+
+        The paper's raw DRAM-cell write: ``key`` is a stored dictionary
+        *code* (or EMPTY_KEY), not a raw dimension key."""
+        self._replace_table(dim, _ht.entry_update(
+            self.indexes[dim].table, bucket, slot, key, value_word))
+
+    def index_update(self, dim: str, key, new_payload) -> None:
+        """Index Update: search raw ``key`` in ``dim``; update its payload.
+
+        The table is keyed by dictionary codes, so the raw key is encoded
+        first; an absent key encodes to NO_CODE and the update no-ops."""
+        raw = torch.as_tensor(key, device=self.device).to(torch.int32)
+        code = encode(self.indexes[dim].dictionary, raw.reshape(1))[0]
+        self._replace_table(dim, _ht.index_update(
+            self.indexes[dim].table, code, new_payload))
+
+    def table_update(self, dim: str, bucket_ids, new_keys,
+                     new_values) -> None:
+        """Table Update: burst-write whole buckets of ``dim``."""
+        self._replace_table(dim, _ht.table_update(
+            self.indexes[dim].table, bucket_ids, new_keys, new_values))
+
+    # -- streaming ingest: delta buffer + compaction ------------------------
+    def _check_plannable(self) -> None:
+        """Raise ``NotImplementedError`` where compaction cannot be priced
+        (a CUDA engine, until the planner slice)."""
+        costmodel.host_costs(self.device.type)
+
+    def ingest(self, dim: str, keys, payloads=None, *, op: str = "upsert",
+               auto_compact: bool = True) -> CompactionPlan | None:
+        """Absorb a batch of index ops into ``dim``'s delta buffer.
+
+        ``keys`` are raw dimension keys; ``op`` is "insert" / "upsert"
+        (``payloads`` = dimension-row indices) or "delete" (tombstones).
+        Drops the dimension's cached probes, then, when ``auto_compact``
+        and the planner says so, folds the delta into the main table.
+        Returns the planner's decision, or ``None`` on a CUDA engine with
+        ``auto_compact=False`` (compaction is not priced on the card until
+        the planner slice; ``auto_compact=True`` raises there before any
+        state changes).  Batches are validated here and rejected with a
+        ``ValueError`` naming the argument.
+        """
+        if self.mode != "jspim":
+            raise ValueError("ingest requires jspim mode (no index to "
+                             f"maintain in mode={self.mode!r})")
+        if dim not in self.indexes:
+            raise ValueError(f"dim: unknown dimension {dim!r} (have "
+                             f"{sorted(self.indexes)})")
+        if op not in ("insert", "upsert", "delete"):
+            raise ValueError(f"op: expected insert/upsert/delete, "
+                             f"got {op!r}")
+        keys = _check_batch_col("keys", keys)
+        if np.any(keys == _ht.EMPTY_KEY):
+            raise ValueError("keys: EMPTY_KEY is reserved as the hash "
+                             "slot sentinel and cannot be ingested")
+        if op == "delete":
+            payloads = None
+        else:
+            if payloads is None:
+                raise ValueError(f"payloads: required for op={op!r} "
+                                 "(the new dimension-row indices)")
+            payloads = _check_batch_col("payloads", payloads,
+                                        expect_len=keys.shape[0])
+        priced = auto_compact or self.device.type == "cpu"
+        if auto_compact:
+            self._check_plannable()
+        if keys.shape[0] == 0:  # zero ops change no state
+            return self.compaction_plan(dim) if priced else None
+        self.indexes[dim] = ingest_index(self.indexes[dim], keys, payloads,
+                                         op=op)
+        self._ingest_batches += 1
+        self.invalidate_probe_cache(dim)
+        if not priced:
+            return None
+        plan = self.compaction_plan(dim)
+        if auto_compact and plan.compact:
+            self.compact(dim)
+        return plan
+
+    def append_rows(self, dim: str, rows, *,
+                    auto_compact: bool = True) -> None:
+        """Append new rows to a dimension table and index them.
+
+        ``rows`` maps every column of ``dim`` to a 1-D array of new values
+        (validated: integer, 1-D, equal lengths).  The dimension table
+        grows; in jspim mode the new PK -> row-index mappings stream into
+        the delta buffer (no index rebuild); in every mode the dimension's
+        cached probes drop.  A zero-row append is a no-op.
+        ``auto_compact`` passes through to ``ingest``.
+        """
+        if dim not in DIM_PK:
+            raise ValueError(f"dim: unknown dimension {dim!r} (have "
+                             f"{sorted(DIM_PK)})")
+        t = self.tables[dim]
+        missing = set(t.names()) ^ set(rows)
+        if missing:
+            raise ValueError(f"append_rows({dim!r}) column mismatch: "
+                             f"{sorted(missing)}")
+        cols_np: dict[str, np.ndarray] = {}
+        n_new: int | None = None
+        for k in t.names():
+            cols_np[k] = _check_batch_col(f"rows[{k!r}]", rows[k],
+                                          expect_len=n_new)
+            if n_new is None:
+                n_new = cols_np[k].shape[0]
+        if n_new == 0:
+            return
+        if self.mode == "jspim":
+            # reject before any state changes: the internal ingest would
+            # raise after the table grew, tearing the append
+            if np.any(cols_np[DIM_PK[dim]] == _ht.EMPTY_KEY):
+                raise ValueError(f"rows[{DIM_PK[dim]!r}]: EMPTY_KEY is "
+                                 "reserved as the hash slot sentinel and "
+                                 "cannot be a dimension primary key")
+            if auto_compact:
+                self._check_plannable()
+        n0 = t.n_rows
+        self.tables[dim] = t.append(cols_np)
+        if self.mode == "jspim":
+            self.ingest(dim, cols_np[DIM_PK[dim]],
+                        np.arange(n0, n0 + n_new, dtype=np.int32),
+                        op="insert", auto_compact=auto_compact)
+        else:
+            self.invalidate_probe_cache(dim)
+
+    def compaction_plan(self, dim: str) -> CompactionPlan:
+        """The planner's compact-or-defer decision for ``dim`` right now.
+        Raises ``NotImplementedError`` on a CUDA engine until the planner
+        slice."""
+        self._check_plannable()
+        idx = self.indexes[dim]
+        st = idx.stats
+        ds = delta_stats(idx.delta) if idx.delta is not None else None
+        return plan_compaction(
+            delta_entries=0 if ds is None else ds.n_entries,
+            delta_slots=0 if ds is None else ds.num_slots,
+            fill_frac=0.0 if ds is None else ds.fill_frac,
+            worst_bucket_frac=0.0 if ds is None else ds.worst_bucket_frac,
+            n_build=(st.n_build if st is not None
+                     else int(idx.table.n_build)),
+            n_dict=int(idx.dictionary.n),
+            bucket_width=idx.table.bucket_width,
+            expected_probes=self.tables["lineorder"].n_rows,
+            backend=self.device.type)
+
+    def compact(self, dim: str) -> None:
+        """Fold ``dim``'s delta into its main table.
+
+        With no buffered ops this is a no-op (an all-empty delta is only
+        stripped).  Otherwise the merge writes fresh planes: an index taken
+        from ``engine.indexes`` before the call, or shared with another
+        engine through ``indexes=``, keeps reading what it read.
+        """
+        idx = self.indexes[dim]
+        if delta_is_empty(idx.delta):
+            if idx.delta is not None:
+                self.indexes[dim] = dataclasses.replace(idx, delta=None)
+            return
+        self.indexes[dim] = compact_index(idx)
+        self._compactions += 1
+        self.invalidate_probe_cache(dim)
+
+    def ingest_info(self) -> dict:
+        """Ingest/compaction counters + per-dim delta occupancy."""
+        deltas = {d: dataclasses.asdict(delta_stats(ix.delta))
+                  for d, ix in self.indexes.items() if ix.delta is not None}
+        return {"ingest_batches": self._ingest_batches,
+                "compactions": self._compactions, "deltas": deltas}

@@ -4,7 +4,8 @@ The port's own copy of ``repro.engine.ssb``'s generator: the same numpy
 draws in the same order, so the same ``sf``/``seed`` gives byte-identical
 arrays.  Integer-coded columns; row counts follow the paper's linear
 scaling: lineorder 6,000,000×SF; customer 30,000×SF; supplier 2,000×SF;
-part 200,000×SF; date 2,556 (7 years of days, fixed).
+part 200,000×SF; date 2,556 (7 years of days, fixed).  ``random_mutation``
+draws the dimension-mutation stream the differential tests replay.
 """
 from __future__ import annotations
 
@@ -128,3 +129,50 @@ def generate_ssb_dims(sf: float, seed: int = 0,
     dev = resolve_device(device)
     dims = _gen_dims(np.random.default_rng(seed), sf)
     return {name: Table.from_numpy(cols, dev) for name, cols in dims.items()}
+
+
+def random_mutation(engine, rng: np.random.Generator, *,
+                    kinds=("ingest", "delete", "append_rows", "compact")
+                    ) -> tuple[str, dict]:
+    """Draw one randomized dimension mutation, apply it to ``engine`` and
+    return ``(kind, detail)`` so that a differential harness can mirror it.
+
+    The JAX package's ``random_mutation`` restricted to the dimension
+    kinds: upserts (some re-pointed past the table's end), deletes,
+    dimension growth and compaction.  It makes the same ``rng`` draws, so
+    one seed and the same ``kinds`` give the same stream in both packages.
+    Every ingest runs with ``auto_compact=False``.
+    """
+    from repro_torch.engine.queries import DIM_PK
+
+    kind = kinds[int(rng.integers(0, len(kinds)))]
+    dim = ("customer", "supplier", "part",
+           "date")[int(rng.integers(0, 4))]
+    if kind in ("ingest", "delete"):
+        pk = engine.tables[dim][DIM_PK[dim]].cpu().numpy()
+        n = int(rng.integers(1, 9))
+        keys = pk[rng.integers(0, pk.shape[0], n)].astype(np.int32)
+        if kind == "delete":
+            engine.ingest(dim, keys, op="delete", auto_compact=False)
+            return "ingest", {"dim": dim, "op": "delete", "keys": keys}
+        # re-point: mostly valid rows, sometimes past the table end
+        hi = pk.shape[0] + (4 if rng.integers(0, 4) == 0 else 0)
+        pays = rng.integers(0, max(hi, 1), n, dtype=np.int32)
+        op = "upsert" if rng.integers(0, 2) else "insert"
+        engine.ingest(dim, keys, pays, op=op, auto_compact=False)
+        return "ingest", {"dim": dim, "op": op, "keys": keys,
+                          "payloads": pays}
+    if kind == "append_rows":
+        t = engine.tables[dim]
+        n = int(rng.integers(1, 4))
+        base = int(t[DIM_PK[dim]].max()) + 1
+        src = rng.integers(0, t.n_rows, n)
+        rows = {k: t[k].cpu().numpy()[src] for k in t.names()}
+        rows[DIM_PK[dim]] = np.arange(base, base + n, dtype=np.int32)
+        engine.append_rows(dim, rows, auto_compact=False)
+        return kind, {"dim": dim, "rows": rows}
+    if kind != "compact":
+        raise ValueError(f"unknown mutation kind {kind!r} (the fact append "
+                         "waits for its slice)")
+    engine.compact(dim)
+    return "compact", {"dim": dim}

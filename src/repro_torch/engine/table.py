@@ -1,8 +1,10 @@
 """Column-store tables (§3.2.1: "JSPIM adopts a column-store approach").
 
-PyTorch port of the static part of ``repro.engine.table``: a relation is a
-dict of equal-length int32 column tensors on one device.  The fact-side
-capacity tail (``append_tail``, ``pad_batch``) waits for the mutation slice.
+PyTorch port of ``repro.engine.table`` without the fact-side capacity
+tail: a relation is a dict of equal-length int32 column tensors on one
+device, and ``append`` grows it by whole rows (dimension ingest).  The
+capacity tail (``append_tail``, ``pad_batch``) waits for the fact-append
+slice.
 """
 from __future__ import annotations
 
@@ -60,6 +62,23 @@ class Table:
         return Table({k: torch.as_tensor(np.require(v, np.int32, "W"),
                                          device=device)
                       for k, v in cols.items()})
+
+    def append(self, cols: Mapping[str, torch.Tensor | np.ndarray]
+               ) -> "Table":
+        """A new Table with ``cols`` rows appended; ``cols`` must cover
+        exactly this table's columns, with equal lengths."""
+        if set(cols) != set(self.columns):
+            raise ValueError(f"column mismatch: {sorted(cols)} vs "
+                             f"{sorted(self.columns)}")
+        dev = self.device
+        new = {k: torch.as_tensor(np.asarray(v) if not torch.is_tensor(v)
+                                  else v, device=dev).to(torch.int32)
+               for k, v in cols.items()}
+        lens = {k: v.shape[0] for k, v in new.items()}
+        if len(set(lens.values())) != 1:
+            raise ValueError(f"ragged append: {lens}")
+        return Table({k: torch.cat([v, new[k]])
+                      for k, v in self.columns.items()})
 
     def nbytes(self) -> int:
         return sum(v.numel() * v.element_size()

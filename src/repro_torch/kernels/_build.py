@@ -34,6 +34,12 @@ SIGNATURES = {
         "probe_rows_launch": (_P, _P, _P, _P, _P, _I64, _I32, _P),
         # tk, tv, tp, keys, bids, out, m, w, stream
         "probe_filter_rows_launch": (_P, _P, _P, _P, _P, _P, _I64, _I32, _P),
+        # tk, tv, tp, keys, bids, dtk, dtw, dkeys, dbids, out, m, w, dw,
+        # stream
+        "probe_filter_rows_delta_launch": (_P, _P, _P, _P, _P, _P, _P, _P,
+                                           _P, _P, _I64, _I32, _I32, _P),
+        # tk, tv, keys, bids, out, m, w, stream
+        "bucket_probe_stream_launch": (_P, _P, _P, _P, _P, _I64, _I32, _P),
     },
     "fused_query": {
         # dim pointer table (host), widths (host), n_dims, fmeasure, m,

@@ -1,10 +1,12 @@
 """Wrappers for the bucket-probe CUDA kernels (``csrc/bucket_probe.cu``).
 
-``probe_rows`` replaces ``repro/kernels/bucket_probe.py:probe_rows`` and
-``probe_filter_rows`` replaces ``probe_filter_rows`` there.  Both take the
+Each replaces the kernel of the same name in ``repro/kernels/
+bucket_probe.py``: ``probe_rows``, ``probe_filter_rows``,
+``probe_filter_rows_delta`` and ``bucket_probe_stream``.  All take the
 ``(B, W)`` table planes and per-probe bucket ids and gather each bucket row
 inside the kernel, so the ``(m, W)`` rows the TPU kernels consume never
-reach device memory.
+reach device memory.  ``bucket_probe_stream`` computes what ``probe_rows``
+computes, with W lanes of a warp per probe instead of one thread.
 
 Dispatch: a CUDA tensor launches the kernel (and raises if it cannot be
 built or launched); a CPU tensor takes the plain version, which gathers
@@ -50,8 +52,12 @@ def _check_cuda(what: str, planes, w: int) -> None:
 
 def probe_rows_plain(table_keys, table_vals, probe_keys, bucket_ids):
     """The plain version of ``probe_rows``: gather, then ``ref``."""
-    b = bucket_ids.long()
-    return ref.probe_rows_ref(probe_keys, table_keys[b], table_vals[b])
+    return ref.bucket_probe_ref(table_keys, table_vals, probe_keys,
+                                bucket_ids)
+
+
+# the stream kernel computes what probe_rows computes
+bucket_probe_stream_plain = probe_rows_plain
 
 
 def probe_filter_rows_plain(table_keys, table_vals, table_pred, probe_keys,
@@ -60,6 +66,17 @@ def probe_filter_rows_plain(table_keys, table_vals, table_pred, probe_keys,
     b = bucket_ids.long()
     return ref.probe_filter_rows_ref(probe_keys, table_keys[b],
                                      table_vals[b], table_pred[b])
+
+
+def probe_filter_rows_delta_plain(table_keys, table_vals, table_pred,
+                                  probe_keys, bucket_ids, delta_keys,
+                                  delta_words, raw_keys, delta_bucket_ids):
+    """The plain version of ``probe_filter_rows_delta``: gather, then
+    ``ref``."""
+    b, db = bucket_ids.long(), delta_bucket_ids.long()
+    return ref.probe_filter_rows_delta_ref(
+        probe_keys, table_keys[b], table_vals[b], table_pred[b], raw_keys,
+        delta_keys[db], delta_words[db])
 
 
 def _stream() -> int:
@@ -90,6 +107,29 @@ def probe_rows(table_keys: torch.Tensor, table_vals: torch.Tensor,
     return out
 
 
+def bucket_probe_stream(table_keys: torch.Tensor, table_vals: torch.Tensor,
+                        probe_keys: torch.Tensor,
+                        bucket_ids: torch.Tensor) -> torch.Tensor:
+    """The streaming schedule's probe: ``probe_rows``'s operands and
+    result, with ``min(W, 32)`` lanes of a warp sharing each probe."""
+    planes = (table_keys, table_vals)
+    m, w = _check_operands("bucket_probe_stream", planes,
+                           (probe_keys, bucket_ids))
+    if probe_keys.device.type == "cpu":
+        return bucket_probe_stream_plain(*planes, probe_keys, bucket_ids)
+    _check_cuda("bucket_probe_stream", planes, w)
+    out = torch.empty(m, dtype=torch.int32, device=probe_keys.device)
+    if m == 0:
+        return out
+    lib = _build.load("bucket_probe")
+    _build.check(lib.bucket_probe_stream_launch(
+        table_keys.data_ptr(), table_vals.data_ptr(), probe_keys.data_ptr(),
+        bucket_ids.data_ptr(), out.data_ptr(), m, w, _stream()),
+        "bucket_probe_stream")
+    bucket_probe_stream.launches += 1
+    return out
+
+
 def probe_filter_rows(table_keys: torch.Tensor, table_vals: torch.Tensor,
                       table_pred: torch.Tensor, probe_keys: torch.Tensor,
                       bucket_ids: torch.Tensor) -> torch.Tensor:
@@ -116,5 +156,50 @@ def probe_filter_rows(table_keys: torch.Tensor, table_vals: torch.Tensor,
     return out
 
 
+def probe_filter_rows_delta(table_keys: torch.Tensor,
+                            table_vals: torch.Tensor,
+                            table_pred: torch.Tensor,
+                            probe_keys: torch.Tensor,
+                            bucket_ids: torch.Tensor,
+                            delta_keys: torch.Tensor,
+                            delta_words: torch.Tensor,
+                            raw_keys: torch.Tensor,
+                            delta_bucket_ids: torch.Tensor) -> torch.Tensor:
+    """``probe_filter_rows`` plus the delta overlay -> (m,) packed words.
+
+    The first five operands are ``probe_filter_rows``'s.  ``delta_keys``
+    and ``delta_words`` are the delta's ``(DB, DW)`` key plane and its
+    predicate-folded word plane (``ops.delta_slot_words``); ``raw_keys``
+    probe it at ``delta_bucket_ids``.  A delta hit overrides the main
+    word, even with NULL_WORD.
+    """
+    planes = (table_keys, table_vals, table_pred)
+    dplanes = (delta_keys, delta_words)
+    m, w = _check_operands("probe_filter_rows_delta", planes,
+                           (probe_keys, bucket_ids))
+    _, dw = _check_operands("probe_filter_rows_delta", dplanes,
+                            (raw_keys, delta_bucket_ids, probe_keys))
+    if probe_keys.device.type == "cpu":
+        return probe_filter_rows_delta_plain(*planes, probe_keys, bucket_ids,
+                                             *dplanes, raw_keys,
+                                             delta_bucket_ids)
+    _check_cuda("probe_filter_rows_delta", planes, w)
+    _check_cuda("probe_filter_rows_delta", dplanes, dw)
+    out = torch.empty(m, dtype=torch.int32, device=probe_keys.device)
+    if m == 0:
+        return out
+    lib = _build.load("bucket_probe")
+    _build.check(lib.probe_filter_rows_delta_launch(
+        table_keys.data_ptr(), table_vals.data_ptr(), table_pred.data_ptr(),
+        probe_keys.data_ptr(), bucket_ids.data_ptr(), delta_keys.data_ptr(),
+        delta_words.data_ptr(), raw_keys.data_ptr(),
+        delta_bucket_ids.data_ptr(), out.data_ptr(), m, w, dw, _stream()),
+        "probe_filter_rows_delta")
+    probe_filter_rows_delta.launches += 1
+    return out
+
+
 probe_rows.launches = 0
+bucket_probe_stream.launches = 0
 probe_filter_rows.launches = 0
+probe_filter_rows_delta.launches = 0

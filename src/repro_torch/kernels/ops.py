@@ -1,15 +1,15 @@
 """Probe entry points over the CUDA kernels, and the kernel registry.
 
-``probe_table`` / ``probe_table_filtered`` are what ``engine/join.py``
-calls on the ``"cuda"`` kernel: hash the probe keys (a plain elementwise op,
-as in the JAX package) and hand the table planes and bucket ids to the
-kernel, which gathers the bucket rows itself.
+``probe_table`` / ``probe_table_filtered`` / ``probe_table_filtered_delta``
+are what ``engine/join.py`` calls on the ``"cuda"`` kernel: hash the probe
+keys (a plain elementwise op, as in the JAX package) and hand the table
+planes and bucket ids to the kernel, which gathers the bucket rows itself.
 
 ``KERNEL_REGISTRY`` lists every hand-written kernel with its plain version,
 the TPU kernel it replaces and deterministic operand cases.  The cases are
 the JAX registry's (``repro/kernels/ops.py``), drawn from the same numpy
-seeds, in the port's calling convention: table planes plus bucket ids
-instead of gathered rows.
+seeds and built with the port's own ``core/delta.py``, in the port's
+calling convention: table planes plus bucket ids instead of gathered rows.
 """
 from __future__ import annotations
 
@@ -19,23 +19,35 @@ from typing import Callable
 import numpy as np
 import torch
 
+from repro_torch.core.delta import (TOMBSTONE, DeltaTable, delete_batch,
+                                    empty_delta, upsert_batch)
 from repro_torch.core.hash_table import (EMPTY_KEY, HASH_FIBONACCI,
                                          JSPIMTable, build_table, hash_bucket)
-from repro_torch.core.lookup import ProbeResult, unpack_words
-from repro_torch.kernels.bucket_probe import (probe_filter_rows,
-                                              probe_filter_rows_plain,
-                                              probe_rows, probe_rows_plain)
+from repro_torch.core.lookup import NULL_WORD, ProbeResult, unpack_words
+from repro_torch.kernels.bucket_probe import (
+    bucket_probe_stream, bucket_probe_stream_plain, probe_filter_rows,
+    probe_filter_rows_delta, probe_filter_rows_delta_plain,
+    probe_filter_rows_plain, probe_rows, probe_rows_plain)
 from repro_torch.kernels.fused_query import fused_query, fused_query_plain
 
-TOMBSTONE = -2  # a delete's stored delta word (reads as a miss)
 
+def probe_table(table: JSPIMTable, probe_keys: torch.Tensor, *,
+                schedule: str = "gathered") -> ProbeResult:
+    """Associative search through the probe kernels.
 
-def probe_table(table: JSPIMTable, probe_keys: torch.Tensor) -> ProbeResult:
-    """Associative search through the ``probe_rows`` kernel (the gathered
-    schedule; the streaming one waits for ``bucket_probe_stream``)."""
+    ``schedule="gathered"`` runs ``probe_rows`` (one thread per probe);
+    ``"stream"`` runs ``bucket_probe_stream`` (W lanes of a warp per
+    probe).  Both give the same words.
+    """
     keys = probe_keys.to(torch.int32)
     bids = hash_bucket(keys, table.num_buckets, table.hash_mode)
-    return unpack_words(probe_rows(table.keys, table.values, keys, bids))
+    if schedule == "gathered":
+        words = probe_rows(table.keys, table.values, keys, bids)
+    elif schedule == "stream":
+        words = bucket_probe_stream(table.keys, table.values, keys, bids)
+    else:
+        raise ValueError(f"unknown schedule {schedule!r}")
+    return unpack_words(words)
 
 
 def slot_predicate(table: JSPIMTable, dim_mask: torch.Tensor) -> torch.Tensor:
@@ -62,6 +74,40 @@ def probe_table_filtered(table: JSPIMTable, probe_keys: torch.Tensor,
     bids = hash_bucket(keys, table.num_buckets, table.hash_mode)
     return unpack_words(probe_filter_rows(table.keys, table.values,
                                           slot_pred, keys, bids))
+
+
+def delta_slot_words(delta: DeltaTable, dim_mask: torch.Tensor
+                     ) -> torch.Tensor:
+    """Fold a dimension predicate into the delta's word plane.
+
+    Per delta slot: a live payload that passes ``dim_mask`` keeps its
+    word; a filtered-out payload and a tombstone both become NULL_WORD, so
+    the kernel's "a delta hit overrides" rule needs no other branch.
+    Returns (num_buckets, bucket_width) int32.
+    """
+    payload = delta.words >> 1
+    is_tomb = delta.words == TOMBSTONE
+    n = dim_mask.shape[0]
+    ok = (dim_mask[payload.clamp(0, n - 1).long()]
+          & (payload >= 0) & (payload < n))
+    return torch.where(~is_tomb & ok, delta.words,
+                       NULL_WORD).to(torch.int32)
+
+
+def probe_table_filtered_delta(table: JSPIMTable, probe_keys: torch.Tensor,
+                               slot_pred: torch.Tensor, delta: DeltaTable,
+                               raw_keys: torch.Tensor,
+                               delta_words: torch.Tensor) -> ProbeResult:
+    """``probe_table_filtered`` on an index with a live delta
+    (``probe_filter_rows_delta``): ``raw_keys`` probe the delta's key
+    plane, and ``delta_words`` comes from ``delta_slot_words``."""
+    keys = probe_keys.to(torch.int32)
+    bids = hash_bucket(keys, table.num_buckets, table.hash_mode)
+    raw = raw_keys.to(torch.int32)
+    dbids = hash_bucket(raw, delta.num_buckets, delta.hash_mode)
+    return unpack_words(probe_filter_rows_delta(
+        table.keys, table.values, slot_pred, keys, bids, delta.keys,
+        delta_words, raw, dbids))
 
 
 # --------------------------------------------------------------------------
@@ -125,6 +171,11 @@ def _probe_rows_cases(device="cpu"):
     return [("hit_miss_mix", (table.keys, table.values, pk, bids), {})]
 
 
+def _stream_cases(device="cpu"):
+    table, pk, bids = _probe_cases(device)
+    return [("hit_miss_mix", (table.keys, table.values, pk, bids), {})]
+
+
 def _filter_cases(device="cpu"):
     table, pk, bids = _probe_cases(device)
     mask = torch.as_tensor(np.arange(64) % 3 == 0, device=device)
@@ -132,41 +183,29 @@ def _filter_cases(device="cpu"):
     return [("pred_mix", (table.keys, table.values, pred, pk, bids), {})]
 
 
-def _delta_planes(batches, num_buckets=16, bucket_width=8):
-    """Keys/words planes of a Fibonacci delta buffer after applying
-    ``[(keys, words)]`` batches: per batch the last op per key wins, an
-    existing key is overwritten in place and a new key takes its bucket's
-    next free slot, in key order (the reference's ``apply_batch``)."""
-    keys = np.full((num_buckets, bucket_width), EMPTY_KEY, np.int32)
-    words = np.zeros((num_buckets, bucket_width), np.int32)
-    fill = np.zeros(num_buckets, np.int64)
-    for bk, bw in batches:
-        bk, bw = np.asarray(bk, np.int32), np.asarray(bw, np.int32)
-        order = np.argsort(bk, kind="stable")
-        sk, sw = bk[order], bw[order]
-        last = np.append(sk[:-1] != sk[1:], True)
-        bkt = hash_bucket(torch.as_tensor(sk), num_buckets,
-                          HASH_FIBONACCI).numpy()
-        for k, w, b in zip(sk[last], sw[last], bkt[last]):
-            if k == EMPTY_KEY:
-                continue
-            hit = np.flatnonzero(keys[b] == k)
-            if hit.size:
-                words[b, hit[0]] = w
-            elif fill[b] < bucket_width:
-                keys[b, fill[b]], words[b, fill[b]] = k, w
-                fill[b] += 1
-    return keys, words
+def _delta_states(device):
+    """(state, delta) across the reference's empty / live / tombstone axis:
+    upsert {3: 7, 9: 1, 10001: 40}, then delete {9, 30}."""
+    empty = empty_delta(16, 8, hash_mode=HASH_FIBONACCI, device=device)
+    live = upsert_batch(empty, _t([3, 9, 10_001], device),
+                        _t([7, 1, 40], device))
+    tomb = delete_batch(live, _t([9, 30], device))
+    return [("delta_empty", empty), ("delta_live", live),
+            ("delta_tombstone", tomb)]
 
 
-def _delta_states():
-    """(state, keys plane, words plane) across the reference's empty / live /
-    tombstone deltas: upsert {3: 7, 9: 1, 10001: 40}, then delete {9, 30}."""
-    upsert = ([3, 9, 10_001], [7 << 1, 1 << 1, 40 << 1])
-    delete = ([9, 30], [TOMBSTONE, TOMBSTONE])
-    return [("delta_empty", *_delta_planes([])),
-            ("delta_live", *_delta_planes([upsert])),
-            ("delta_tombstone", *_delta_planes([upsert, delete]))]
+def _filter_delta_cases(device="cpu"):
+    table, pk, bids = _probe_cases(device)
+    mask = torch.as_tensor(np.arange(64) % 3 == 0, device=device)
+    pred = slot_predicate(table, mask)
+    raw = pk  # the case table holds raw keys: raw key == probe key
+    cases = []
+    for state, delta in _delta_states(device):
+        dwords = delta_slot_words(delta, mask)
+        dbids = hash_bucket(raw, delta.num_buckets, delta.hash_mode)
+        cases.append((state, (table.keys, table.values, pred, pk, bids,
+                              delta.keys, dwords, raw, dbids), {}))
+    return cases
 
 
 def _fused_query_cases(device="cpu"):
@@ -187,11 +226,11 @@ def _fused_query_cases(device="cpu"):
     fmeasure = _t(rng.integers(0, 1000, pk.shape[0]), device)
     cases = [("no_delta", (((pk, bids, table.keys, attr),), fmeasure),
               {"num_segments": card})]
-    for state, dkeys, dwords in _delta_states():
-        dkeys, dwords = _t(dkeys, device), _t(dwords, device)
-        dattr = attr_of(dwords, dwords == TOMBSTONE)
-        dbids = hash_bucket(pk, dkeys.shape[0], HASH_FIBONACCI)
-        dim_ops = ((pk, bids, table.keys, attr, pk, dbids, dkeys, dattr),)
+    for state, delta in _delta_states(device):
+        dattr = attr_of(delta.words, delta.words == TOMBSTONE)
+        dbids = hash_bucket(pk, delta.num_buckets, delta.hash_mode)
+        dim_ops = ((pk, bids, table.keys, attr, pk, dbids, delta.keys,
+                    dattr),)
         cases.append((state, (dim_ops, fmeasure), {"num_segments": card}))
     return cases
 
@@ -201,9 +240,18 @@ register_kernel(KernelOp(
     _probe_rows_cases, "src/repro_torch/kernels/csrc/bucket_probe.cu",
     "src/repro/kernels/bucket_probe.py:79"))
 register_kernel(KernelOp(
+    "bucket_probe_stream", bucket_probe_stream, bucket_probe_stream_plain,
+    ("cuda",), _stream_cases, "src/repro_torch/kernels/csrc/bucket_probe.cu",
+    "src/repro/kernels/bucket_probe.py:140"))
+register_kernel(KernelOp(
     "probe_filter_rows", probe_filter_rows, probe_filter_rows_plain,
     ("cuda",), _filter_cases, "src/repro_torch/kernels/csrc/bucket_probe.cu",
     "src/repro/kernels/bucket_probe.py:194"))
+register_kernel(KernelOp(
+    "probe_filter_rows_delta", probe_filter_rows_delta,
+    probe_filter_rows_delta_plain, ("cuda",), _filter_delta_cases,
+    "src/repro_torch/kernels/csrc/bucket_probe.cu",
+    "src/repro/kernels/bucket_probe.py:271"))
 register_kernel(KernelOp(
     "fused_query", fused_query, fused_query_plain, ("cuda",),
     _fused_query_cases, "src/repro_torch/kernels/csrc/fused_query.cu",

@@ -12,8 +12,9 @@ import torch
 from repro_torch.core.hash_table import EMPTY_KEY
 from repro_torch.core.lookup import NULL_WORD, unpack_words
 
-__all__ = ["NULL_WORD", "unpack_words", "probe_rows_ref",
-           "probe_filter_rows_ref", "fused_query_ref", "segment_sum"]
+__all__ = ["NULL_WORD", "unpack_words", "probe_rows_ref", "bucket_probe_ref",
+           "probe_filter_rows_ref", "probe_filter_rows_delta_ref",
+           "fused_query_ref", "segment_sum"]
 
 
 def _select_sum(match: torch.Tensor, rows: torch.Tensor) -> torch.Tensor:
@@ -29,6 +30,13 @@ def probe_rows_ref(probe_keys, rows_k, rows_v):
     return torch.where(found, _select_sum(match, rows_v), NULL_WORD)
 
 
+def bucket_probe_ref(table_keys, table_vals, probe_keys, bucket_ids):
+    """Streaming probe: activate row ``bucket_ids[i]`` per probe, then the
+    comparator-array select.  (B, W) x2, (m,) x2 -> (m,) packed words."""
+    b = bucket_ids.long()
+    return probe_rows_ref(probe_keys, table_keys[b], table_vals[b])
+
+
 def probe_filter_rows_ref(probe_keys, rows_k, rows_v, rows_p):
     """Fused probe + per-slot predicate (§4.1.5 filter-on-the-fly): a match
     whose predicate bit is 0 returns NULL_WORD."""
@@ -36,6 +44,19 @@ def probe_filter_rows_ref(probe_keys, rows_k, rows_v, rows_p):
     found = match.any(dim=1) & (probe_keys != EMPTY_KEY)
     pred = _select_sum(match, rows_p) > 0
     return torch.where(found & pred, _select_sum(match, rows_v), NULL_WORD)
+
+
+def probe_filter_rows_delta_ref(probe_keys, rows_k, rows_v, rows_p,
+                                delta_keys, drows_k, drows_w):
+    """Delta-aware fused probe + predicate (§3.2.3 + §4.1.5): the main
+    probe is ``probe_filter_rows_ref``; the raw ``delta_keys`` probe the
+    delta bucket rows, and a delta hit overrides the main word.
+    ``drows_w`` is predicate-folded: tombstones and filtered-out delta
+    payloads carry NULL_WORD."""
+    main = probe_filter_rows_ref(probe_keys, rows_k, rows_v, rows_p)
+    dmatch = drows_k == delta_keys[:, None]
+    dhit = dmatch.any(dim=1) & (delta_keys != EMPTY_KEY)
+    return torch.where(dhit, _select_sum(dmatch, drows_w), main)
 
 
 def segment_sum(data: torch.Tensor, segment_ids: torch.Tensor,

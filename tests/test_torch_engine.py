@@ -196,10 +196,36 @@ def test_auto_is_gated_until_the_planner_slice(tables, field):
             engine.run_all(fusion="auto")
 
 
-@pytest.mark.parametrize("value", ["stream", "deduped", "hot_cold"])
+@pytest.mark.parametrize("value", ["deduped", "hot_cold"])
 def test_unported_schedules_raise(value):
     with pytest.raises(NotImplementedError):
         ExecutionPolicy(schedule=value)
+
+
+@pytest.mark.parametrize("path", ["cached_composed", "cold_run", "mega_run"])
+@pytest.mark.parametrize("kernel", ["cuda", "torch"])
+def test_stream_schedule_matches_jax(tables, reference, monkeypatch, kernel,
+                                     path):
+    """``schedule="stream"`` probes through ``bucket_probe_stream`` (its
+    plain version here) and gives the gathered answers, as every schedule
+    must; filtered cold probes keep the filter kernel on ``"cuda"``."""
+    from repro_torch.kernels import ops
+    calls = []
+    real = ops.bucket_probe_stream
+    monkeypatch.setattr(ops, "bucket_probe_stream",
+                        lambda *a: calls.append(1) or real(*a))
+    engine = SSBEngine(tables, policy=ExecutionPolicy(kernel=kernel,
+                                                      schedule="stream"),
+                       device="cpu")
+    _assert_answers(PATHS[path](engine), reference)
+    if path == "mega_run":
+        assert not calls
+    else:  # 4 cached probes; on cold, one per unfiltered joined dimension
+        n_unfiltered = sum(len(set(s.joined_dims()) - set(s.dim_filters))
+                           for s in SSB_QUERIES.values())
+        assert len(calls) == {"cached_composed": 4,
+                              "cold_run": n_unfiltered
+                              if kernel == "cuda" else 32 + 4}[path]
 
 
 def test_policy_defaults_and_validation():

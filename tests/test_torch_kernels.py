@@ -12,19 +12,26 @@ import jax.numpy as jnp
 import pytest
 import torch
 
+from repro.core import delta as jdelta
 from repro.core import hash_table as jht
 from repro.kernels import bucket_probe as jbp
 from repro.kernels import ops as jops
 from repro.kernels import ref as jref
 from repro.kernels.fused_query import fused_query as jfused_query
+from repro_torch.core import delta as tdelta
 from repro_torch.core import hash_table as tht
 from repro_torch.kernels import _build
 from repro_torch.kernels import ops as tops
 from repro_torch.kernels import ref as tref
-from repro_torch.kernels.bucket_probe import probe_filter_rows, probe_rows
+from repro_torch.kernels.bucket_probe import (bucket_probe_stream,
+                                              probe_filter_rows,
+                                              probe_filter_rows_delta,
+                                              probe_rows)
 from repro_torch.kernels.fused_query import _gather, fused_query
 
-REGISTRY_CASES = [("probe_rows", 0), ("probe_filter_rows", 0)] + \
+REGISTRY_CASES = [("probe_rows", 0), ("bucket_probe_stream", 0),
+                  ("probe_filter_rows", 0)] + \
+    [("probe_filter_rows_delta", i) for i in range(3)] + \
     [("fused_query", i) for i in range(4)]
 
 
@@ -42,8 +49,11 @@ def _eq(got, want, msg=""):
 
 
 def test_registry_lists_the_on_path_kernels():
-    assert sorted(tops.KERNEL_REGISTRY) == ["fused_query", "probe_filter_rows",
-                                           "probe_rows"]
+    assert sorted(tops.KERNEL_REGISTRY) == [
+        "bucket_probe_stream", "fused_query", "probe_filter_rows",
+        "probe_filter_rows_delta", "probe_rows"]
+    assert all(len(tops.KERNEL_REGISTRY[n].make_cases("cpu")) > i
+               for n, i in REGISTRY_CASES)
     for name, op in tops.KERNEL_REGISTRY.items():
         assert op.backends == ("cuda",)
         assert op.source.startswith("src/repro_torch/kernels/csrc/")
@@ -60,6 +70,13 @@ def test_registry_case_matches_pallas_interpret(name, i):
         gathered = tuple(_gather(ops) for ops in pargs[0])
         _eq(gathered, jargs[0], "dim operands")
         _eq(pargs[1], jargs[1], "fmeasure")
+    elif name == "bucket_probe_stream":  # both take the table planes
+        _eq(pargs, jargs, "operands")
+    elif name == "probe_filter_rows_delta":
+        tk, tv, tp, pk, bids, dtk, dtw, raw, dbids = pargs
+        b, db = bids.long(), dbids.long()
+        _eq((pk, tk[b], tv[b], tp[b], raw, dtk[db], dtw[db]), jargs,
+            "gathered rows")
     else:
         b = pargs[-1].long()
         _eq(pargs[-2], jargs[0], "probe keys")
@@ -108,6 +125,59 @@ def test_probe_kernels_shape_sweep(width, m):
     want = jbp.probe_filter_rows(jnp.asarray(pk), jt.keys[jb], jt.values[jb],
                                  jnp.asarray(pred.numpy())[jb], block_pb=64,
                                  interpret=True)
+    _eq(got, want)
+
+
+@pytest.mark.parametrize("width", [8, 16])
+@pytest.mark.parametrize("m", [1, 7, 300])
+def test_bucket_probe_stream_shape_sweep(width, m):
+    """The stream kernel's grid runs one step per probe in interpret mode."""
+    tt, jt = _sweep_table(width)
+    pk = _sweep_probes(m, m)
+    bids = tht.hash_bucket(_t(pk), tt.num_buckets, tt.hash_mode)
+    jb = jht.hash_bucket(jnp.asarray(pk), jt.num_buckets, jt.hash_mode)
+    got = bucket_probe_stream(tt.keys, tt.values, _t(pk), bids)
+    want = jbp.bucket_probe_stream(jt.keys, jt.values, jnp.asarray(pk), jb,
+                                   block_pb=64, interpret=True)
+    _eq(got, want)
+    _eq(got, probe_rows(tt.keys, tt.values, _t(pk), bids))
+
+
+@pytest.mark.parametrize("width,dwidth", [(8, 8), (16, 4)])
+@pytest.mark.parametrize("m", [1, 7, 300])
+def test_probe_filter_rows_delta_shape_sweep(width, dwidth, m):
+    """A live delta with upserts (some past the dimension), tombstones and
+    new keys, built by each package's own delta ops."""
+    tt, jt = _sweep_table(width)
+    rng = np.random.default_rng(m + width)
+    td = tdelta.empty_delta(8, dwidth)
+    jd = jdelta.empty_delta(8, dwidth)
+    ups = rng.integers(0, 900, 12).astype(np.int32)
+    pays = rng.integers(0, 230, 12).astype(np.int32)
+    dels = rng.integers(0, 900, 5).astype(np.int32)
+    td = tdelta.delete_batch(tdelta.upsert_batch(td, _t(ups), _t(pays)),
+                             _t(dels))
+    jd = jdelta.delete_batch(jdelta.upsert_batch(jd, jnp.asarray(ups),
+                                                 jnp.asarray(pays)),
+                             jnp.asarray(dels))
+    pk = _sweep_probes(m, m)
+    pk[: min(m, 12)] = ups[: min(m, 12)]
+    mask = np.arange(200) % 4 != 1
+    pred = tops.slot_predicate(tt, torch.as_tensor(mask))
+    dwords = tops.delta_slot_words(td, torch.as_tensor(mask))
+    _eq(dwords, jops.delta_slot_words(jd, jnp.asarray(mask)))
+    bids = tht.hash_bucket(_t(pk), tt.num_buckets, tt.hash_mode)
+    dbids = tht.hash_bucket(_t(pk), td.num_buckets, td.hash_mode)
+    got = probe_filter_rows_delta(tt.keys, tt.values, pred, _t(pk), bids,
+                                  td.keys, dwords, _t(pk), dbids)
+    jb = np.asarray(jht.hash_bucket(jnp.asarray(pk), jt.num_buckets,
+                                    jt.hash_mode))
+    jdb = np.asarray(jht.hash_bucket(jnp.asarray(pk), jd.num_buckets,
+                                     jd.hash_mode))
+    want = jbp.probe_filter_rows_delta(
+        jnp.asarray(pk), jt.keys[jb], jt.values[jb],
+        jnp.asarray(pred.numpy())[jb], jnp.asarray(pk), jd.keys[jdb],
+        jnp.asarray(dwords.numpy())[jdb], block_pb=64, interpret=True)
     _eq(got, want)
 
 
