@@ -21,7 +21,12 @@ Phases (each raises on failure; nothing is caught):
    over this run must equal the path's fixed count.
 5. Stream path: an engine with ``schedule="stream"`` on the same indexes
    runs the cached and cold paths; its 13 answers must equal phase 4's and
-   its launches the path's fixed count.
+   its launches the path's fixed count.  Then the forced skew-aware
+   schedules: one engine with ``schedule="deduped"`` and one with
+   ``"hot_cold"`` on the same indexes print each dimension's plan, run the
+   cached and cold paths, give phase 4's answers and the launch counts
+   their plans fix; ``schedule="auto"`` must raise ``NotImplementedError``
+   on the card (no cost entry for it yet).
 6. Mutation path: a fresh engine (its own dimension tables, the same fact
    table) and a ``kernel="torch"`` twin take a seeded stream per dimension
    with ``auto_compact=False``: delete 0.5% of the keys, upsert 0.5% to
@@ -34,7 +39,14 @@ Phases (each raises on failure; nothing is caught):
    key->row maps kept through the stream, and the launches must equal the
    fixed counts.  Then every dimension is compacted and the same checks
    run again, with the same answers.
-7. Numbers: per-query wall times per path, per-kernel device time per
+7. Skew path (the JAX package's ``benchmarks/skew_sweep.py`` at SSB SF10
+   sizes): a 2,000,000-key dimension with part's geometry, probed by
+   60,000,000 Zipf(s) keys for s in the paper's grid {0, 0.5, 1.5, 2}.
+   Per s: ``measure_skew``, the gathered, stream, deduped and hot/cold
+   schedules through ``lookup`` (equal packed words, fixed launches,
+   device time each), and ``coalesce_window_mask`` (window 8) against its
+   plain version in chunks, with the share of probes it filters.
+8. Numbers: per-query wall times per path, per-kernel device time per
    launch (CUDA events) beside the plain version's, the bytes each launch
    must move and the bound they set, ingest and compact times, peak device
    memory.
@@ -68,12 +80,29 @@ PLAIN_REPS = 3
 # queries (phase 4, and phase 6 after compaction); the stream schedule's
 # cached and cold paths (phase 5); the live-delta paths (phase 6)
 _ZERO = {"probe_rows": 0, "bucket_probe_stream": 0, "probe_filter_rows": 0,
-         "probe_filter_rows_delta": 0, "fused_query": 0}
+         "probe_filter_rows_delta": 0, "fused_query": 0,
+         "coalesce_window_mask": 0}
 EXPECTED_LAUNCHES = dict(_ZERO, probe_rows=8, probe_filter_rows=32,
                          fused_query=13)
 EXPECTED_STREAM = dict(_ZERO, bucket_probe_stream=8, probe_filter_rows=32)
 EXPECTED_LIVE = dict(_ZERO, probe_rows=8, probe_filter_rows_delta=32,
                      fused_query=13)
+# deduped: one probe_rows per unfiltered probe (of the unique keys), as
+# gathered; hot_cold: see hot_cold_launches
+EXPECTED_DEDUPED = dict(_ZERO, probe_rows=8, probe_filter_rows=32)
+# one pass of the skew phase per s: gathered 1, deduped 1 and hot_cold 2
+# (hot-table words, cold remainder) probe_rows, stream 1, the window 1
+EXPECTED_SKEW = dict(_ZERO, probe_rows=4, bucket_probe_stream=1,
+                     coalesce_window_mask=1)
+SCHEDULES = ("gathered", "stream", "deduped", "hot_cold")
+# the skew phase: part's key count at SF10 and lineorder's row count, the
+# paper's Zipf grid, the RLU window, the s whose window launch is timed
+SKEW_KEYS = 2_000_000
+SKEW_PROBES = 60_000_000
+ZIPF_S = (0.0, 0.5, 1.5, 2.0)
+WINDOW = 8
+TIMED_S = 1.5
+SKEW_REPS = 3
 # the share of each dimension's keys the mutation stream deletes, upserts
 # and appends
 MUTATION_FRAC = 0.005
@@ -111,13 +140,18 @@ def main() -> int:
         return 2
     import numpy as np
 
-    from repro_torch.core import ExecutionPolicy, encode, hash_bucket
+    from repro_torch.core import (ExecutionPolicy, build_hot_table, encode,
+                                  hash_bucket, hot_hit_count, measure_skew,
+                                  pack_words, plan_probe, refine_plan,
+                                  top_keys)
+    from repro_torch.core.skew import zipf_sample, zipf_weights
     from repro_torch.engine import (SSB_QUERIES, SSBEngine, Table,
-                                    effective_index, generate_ssb)
+                                    build_dim_index, effective_index,
+                                    generate_ssb, lookup)
     from repro_torch.engine.queries import DIM_PK, FACT_FK, _mega_operands
     from repro_torch.kernels import _build
     from repro_torch.kernels.ops import (KERNEL_REGISTRY, delta_slot_words,
-                                         slot_predicate)
+                                         probe_table, slot_predicate)
 
     def sync():
         torch.cuda.synchronize()
@@ -181,9 +215,10 @@ def main() -> int:
         log(f"[build] {name}: {secs:.2f} s")
         entry = ""
         for line in text.splitlines():
-            m = re.search(r"([a-z_]+_kernel)I(\w+?)EEEv", line)
+            m = re.search(r"([a-z_]+_kernel)(?:I(\w+?)EEEv)?", line)
             if "Compiling entry" in line and m:
-                entry = f"{m.group(1)}<{m.group(2)}>"
+                entry = m.group(1) + (f"<{m.group(2)}>" if m.group(2)
+                                      else "")
             elif "Used" in line:
                 log(f"[ptxas] {name} {entry}: {line.split(':', 1)[1].strip()}")
 
@@ -452,6 +487,57 @@ def main() -> int:
     del stream_engine
     torch.cuda.empty_cache()
 
+    # -- 5b. forced skew-aware schedules ------------------------------------------
+    try:
+        SSBEngine(tables, indexes=engine.indexes,
+                  policy=ExecutionPolicy(schedule="auto"))
+    except NotImplementedError as e:
+        log(f"[auto] schedule='auto' on the card raises "
+            f"NotImplementedError: {e}")
+    else:
+        raise AssertionError("schedule='auto' ran on the card: it must "
+                             "raise until the planner slice")
+    unfiltered = [d for q in names for d in SSB_QUERIES[q].joined_dims()
+                  if d not in SSB_QUERIES[q].dim_filters]
+
+    def hot_cold_launches(plans):
+        """probe_rows launches of one cached + cold pass under hot_cold:
+        per probe, the hot-table words, plus the cold remainder unless the
+        plan is a full map (or its fallback probe: also one launch)."""
+        per = {d: 1 + (not p.full_map) for d, p in plans.items()}
+        return dict(_ZERO, probe_filter_rows=32,
+                    probe_rows=sum(per.values())
+                    + sum(per[d] for d in unfiltered))
+
+    wall_sched, launches_sched = {}, {}
+    for sched in ("deduped", "hot_cold"):
+        t0 = time.perf_counter()
+        eng_s = SSBEngine(tables, indexes=engine.indexes,
+                          policy=ExecutionPolicy(schedule=sched))
+        sync()
+        log(f"[schedule] {sched}: engine planned in "
+            f"{time.perf_counter() - t0:.3f} s; " + "; ".join(
+                f"{d}: {p.schedule}, full_map {p.full_map}, hot "
+                f"{p.hot_entries} entries / {p.hot_slots} slots, cold "
+                f"capacity {p.cold_capacity}"
+                for d, p in sorted(eng_s.plans.items())))
+        for d, p in eng_s.plans.items():
+            full = int(engine.indexes[d].dictionary.n) <= 65536
+            if p.schedule != sched or (sched == "hot_cold"
+                                       and p.full_map != full):
+                raise AssertionError(f"{sched} plan of {d}: {p}")
+        want = (EXPECTED_DEDUPED if sched == "deduped"
+                else hot_cold_launches(eng_s.plans))
+        drive_paths(eng_s, ("cached", "cold"))  # warm-up pass
+        (res_x, wall_sched[sched]), launches_sched[sched] = counted(
+            lambda: drive_paths(eng_s, ("cached", "cold")))
+        check_counts(launches_sched[sched], want, f"{sched} path")
+        check_agree(res_x, res["cached"], ("cached", "cold"), sched)
+        log(f"[agree] {sched} schedule: all {len(names)} queries, cached "
+            "and cold, equal the gathered engine's, bit for bit")
+        del eng_s, res_x
+        torch.cuda.empty_cache()
+
     # -- 6. mutation path ---------------------------------------------------------
     def own_dims():
         return {"lineorder": tables["lineorder"],
@@ -564,7 +650,120 @@ def main() -> int:
     check_numpy(res_c["cached"], mut, key_row, "compacted")
     del host
 
-    # -- 7. numbers ---------------------------------------------------------------
+    # -- 7. skew path ---------------------------------------------------------------
+    dev = engine.device
+    t0 = time.perf_counter()
+    sidx = build_dim_index(torch.arange(SKEW_KEYS, dtype=torch.int32,
+                                        device=dev))
+    sync()
+    log(f"[skew] dimension: {SKEW_KEYS} keys, {sidx.table.num_buckets}x"
+        f"{sidx.table.bucket_width} buckets, built in "
+        f"{time.perf_counter() - t0:.3f} s; {SKEW_PROBES} Zipf probes per s")
+    cwm = KERNEL_REGISTRY["coalesce_window_mask"]
+
+    def window_plain(keys):
+        """The plain window mask in chunks, each with the WINDOW-1 keys
+        before it, so that chunk edges see what the stream saw."""
+        out = []
+        for lo in range(0, keys.shape[0], CHUNK):
+            pre = min(lo, WINDOW - 1)
+            part = cwm.plain_fn(keys[lo - pre:lo + CHUNK], window=WINDOW)
+            out.append(part[pre:])
+        return torch.cat(out)
+
+    def zipf_on_card(n_keys, size, zs, seed):
+        """``zipf_sample``'s keys with its inverse-CDF search run on the
+        card: the same generator calls in the same order (uniform draws,
+        then the rank permutation), so the same keys.  The host's search
+        of 60M draws in a 2M-entry CDF takes tens of seconds at s <= 0.5."""
+        rng = np.random.default_rng(seed)
+        cdf = zipf_weights(n_keys, zs).cumsum()
+        cdf /= cdf[-1]
+        u = torch.from_numpy(rng.random(size)).to(dev)
+        idx = torch.searchsorted(torch.from_numpy(cdf).to(dev), u,
+                                 right=True).to(torch.int32)
+        perm = torch.from_numpy(rng.permutation(n_keys).astype(np.int32))
+        return perm.to(dev)[idx.long()]
+
+    skew_launches = dict(_ZERO)
+    for zs in ZIPF_S:
+        small = 1 << 20
+        if not torch.equal(zipf_on_card(SKEW_KEYS, small, zs, 7).cpu(),
+                           torch.from_numpy(zipf_sample(SKEW_KEYS, small, zs,
+                                                        seed=7))):
+            raise AssertionError(f"card-side Zipf draws differ from "
+                                 f"zipf_sample at s={zs}")
+        t0 = time.perf_counter()
+        keys = zipf_on_card(SKEW_KEYS, SKEW_PROBES, zs, 7)
+        sync()
+        t_sample = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        stats = measure_skew(keys)
+        t_measure = time.perf_counter() - t0
+        plan = plan_probe(stats, bucket_width=sidx.table.bucket_width,
+                          backend="cuda", code_space=SKEW_KEYS,
+                          hash_mode=sidx.table.hash_mode, force="hot_cold")
+        hot = encode(sidx.dictionary, torch.as_tensor(
+            top_keys(keys, plan.hot_entries), device=dev))
+        ht = build_hot_table(sidx.table, hot, plan.hot_slots,
+                             probe_fn=probe_table)
+        cold = SKEW_PROBES - int(hot_hit_count(
+            sidx.table, ht, encode(sidx.dictionary, keys)))
+        plan = refine_plan(plan, cold, SKEW_PROBES)
+        del ht
+
+        def probe_with(sched, keys=keys, plan=plan, hot=hot):
+            return lookup(sidx, keys, impl="cuda", schedule=sched,
+                          plan=plan, hot_codes=hot)
+
+        def skew_pass():
+            return ({sc: pack_words(probe_with(sc)) for sc in SCHEDULES},
+                    cwm.fn(keys, window=WINDOW))
+
+        (words, mask), got = counted(skew_pass)
+        check_counts(got, EXPECTED_SKEW, f"skew path s={zs}")
+        for k, v in got.items():
+            skew_launches[k] += v
+        for sc in SCHEDULES[1:]:
+            if not torch.equal(words[sc], words["gathered"]):
+                raise AssertionError(f"skew s={zs}: {sc} words differ from "
+                                     "gathered")
+        e = max_err(mask, window_plain(keys))
+        err["coalesce_window_mask"] = max(err["coalesce_window_mask"], e)
+        if e:
+            raise AssertionError(f"coalesce_window_mask at s={zs} differs "
+                                 f"from its plain version by {e}")
+        hits = int(words["gathered"].ne(-2).sum())
+        del words
+        ms = {sc: event_ms(lambda sc=sc: probe_with(sc), SKEW_REPS)
+              for sc in SCHEDULES}
+        ms["coalesce_window_mask"] = event_ms(
+            lambda: cwm.fn(keys, window=WINDOW), KERNEL_REPS)
+        share = int(mask.sum()) / SKEW_PROBES
+        log(f"[skew] s={zs}: sampled in {t_sample:.2f} s (the card-side "
+            f"draws equal zipf_sample's at {small} keys), measure_skew "
+            f"{t_measure:.3f} s: distinct {stats.distinct}, dup factor "
+            f"{stats.dup_factor:.3f}, max share {stats.max_share:.6f}; "
+            f"hot_cold plan {plan.hot_entries} entries / {plan.hot_slots} "
+            f"slots, cold {cold} of capacity {plan.cold_capacity}; "
+            f"{hits} hits; four schedules bit-identical; window {WINDOW} "
+            f"filters {share:.6f} of the probes (bit-identical to its plain "
+            f"version); device ms: {json.dumps({k: round(v, 4) for k, v in ms.items()})}")
+        if zs == TIMED_S:
+            moved = nbytes(keys) + SKEW_PROBES  # keys in, one byte out
+            b_ms, b_by = bound(moved, SKEW_PROBES * (WINDOW - 1))
+            rows["coalesce_window_mask"] = {
+                "shape": f"Zipf({zs}) stream of {SKEW_PROBES} keys, window "
+                         f"{WINDOW}", "bytes": moved,
+                "ms": ms["coalesce_window_mask"],
+                "plain_ms": event_ms(lambda: window_plain(keys), PLAIN_REPS),
+                "bound_ms": b_ms, "bound_by": b_by}
+        del keys, mask, hot
+        torch.cuda.empty_cache()
+    if skew_launches["coalesce_window_mask"] != len(ZIPF_S):
+        raise AssertionError("the skew path did not run the window kernel")
+
+    # -- 8. numbers ---------------------------------------------------------------
     log(f"[memory] resident before the main path (tables, indexes): "
         f"{resident} bytes; peak allocated over it: {peak} bytes "
         f"({peak / 2**30:.3f} GiB); peak over the mutation phase: "
@@ -584,6 +783,8 @@ def main() -> int:
 
     log_walls("static", wall, ("cached_warm", "cold", "mega", "baseline"))
     log_walls("stream", wall_s, ("cold",))
+    for sched, w in wall_sched.items():
+        log_walls(sched, w, ("cold",))
     log_walls("live-delta", wall_live, ("cached_warm", "cold", "mega"))
     log_walls("compacted", wall_c, ("cached_warm", "cold", "mega"))
     log(f"[ingest] ms per call (ops per batch): {json.dumps(ingest_ms)}")
@@ -598,7 +799,9 @@ def main() -> int:
     path_launches = dict(launches,
                          bucket_probe_stream=launches_s["bucket_probe_stream"],
                          probe_filter_rows_delta=launches_live[
-                             "probe_filter_rows_delta"])
+                             "probe_filter_rows_delta"],
+                         coalesce_window_mask=skew_launches[
+                             "coalesce_window_mask"])
     log(f"[script] {time.perf_counter() - t_script:.1f} s after the device "
         "query")
 

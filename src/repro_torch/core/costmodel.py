@@ -1,5 +1,6 @@
-"""Host cost model: the part of ``repro.core.costmodel`` compaction needs.
+"""Host cost model: the parts of ``repro.core.costmodel`` the planners use.
 
+``probe_schedule_seconds`` prices one probe schedule (``plan_probe``), and
 ``plan_compaction`` prices three things: the delta overlay every probe
 stream pays while a delta is live, one bucket-local merge, and the full
 rebuild the delta path avoids.  The per-element costs are the JAX
@@ -24,7 +25,13 @@ class HostProbeCost:
     lane_ns: float                # comparator work per bucket lane compared
     sort_ns_per_elem_log2: float  # argsort, per element per log2(n)
     pass_ns: float                # one elementwise pass over the stream
+    interpret_probe_ns: float     # interpret-mode stream kernel, per probe
     op_ns: float                  # fixed dispatch/launch cost per fused op
+
+
+# rough fused-op counts per schedule: the fixed-overhead term that decides
+# small streams (where a richer schedule can only lose)
+_SCHEDULE_OPS = {"gathered": 3, "stream": 3, "deduped": 10, "hot_cold": 16}
 
 
 HOST_COSTS: dict[str, HostProbeCost] = {
@@ -32,7 +39,7 @@ HOST_COSTS: dict[str, HostProbeCost] = {
                          cached_gather_ns_per_byte=0.25,
                          cache_bytes=32 * 2**20, lane_ns=2.0,
                          sort_ns_per_elem_log2=28.0, pass_ns=7.5,
-                         op_ns=50_000.0),
+                         interpret_probe_ns=46_000.0, op_ns=50_000.0),
 }
 
 
@@ -49,6 +56,63 @@ def host_costs(backend: str) -> HostProbeCost:
 
 def _log2(n: int) -> float:
     return math.log2(max(2, n))
+
+
+def probe_schedule_seconds(schedule: str, *, n_probes: int, distinct: int,
+                           bucket_width: int, cold_capacity: int = 0,
+                           hot_slots: int = 0, delta_slots: int = 0,
+                           backend: str = "cpu") -> float:
+    """Modeled wall seconds of one probe schedule on ``backend``.
+
+    ``cold_capacity`` / ``hot_slots`` parameterize ``hot_cold`` only (the
+    planned hot coverage is already folded into ``cold_capacity``);
+    ``cold_capacity == 0`` is the full-map case (no cold path at all).
+    Bucket-row gathers are cache-aware: a stream touching few distinct rows
+    keeps them resident, which speeds the gathered baseline too.  The
+    ``"stream"`` price is the reference's CPU one, where its stream kernel
+    runs in interpret mode.
+    """
+    c = host_costs(backend)
+    m, w = n_probes, bucket_width
+    row_bytes = 2 * w * 4  # key row + value row per activation
+
+    def gather_rate(resident_bytes: float) -> float:
+        return (c.cached_gather_ns_per_byte
+                if resident_bytes <= c.cache_bytes else c.gather_ns_per_byte)
+
+    def activations(k: int, touched_rows: int) -> float:
+        """k bucket activations over ``touched_rows`` distinct rows."""
+        return k * (row_bytes * gather_rate(touched_rows * row_bytes)
+                    + w * c.lane_ns)
+
+    if schedule == "gathered":
+        ns = activations(m, distinct) + 2 * m * c.pass_ns
+    elif schedule == "stream":
+        ns = m * c.interpret_probe_ns
+    elif schedule == "deduped":
+        uniq = min(m, distinct)
+        ns = (m * _log2(m) * c.sort_ns_per_elem_log2   # coalesce argsort
+              + 4 * m * c.pass_ns                      # scan/scatter/inverse
+              + activations(uniq, uniq)
+              + 2 * m * c.pass_ns)                     # scatter back
+    elif schedule == "hot_cold":
+        # the hot table (8 B/slot) is resident by construction; the fused
+        # gather + compare + select is about one pass
+        ns = (m * (8 * c.cached_gather_ns_per_byte + c.pass_ns)
+              + hot_slots * row_bytes * c.gather_ns_per_byte)  # table build
+        cold = min(m, int(cold_capacity))
+        if cold > 0:
+            uniq = min(cold, distinct)
+            ns += (m * 3 * c.pass_ns                   # mask/cumsum/merge
+                   + cold * _log2(cold) * c.sort_ns_per_elem_log2
+                   + activations(uniq, uniq))
+    else:
+        raise ValueError(f"unknown schedule {schedule!r}")
+    if delta_slots > 0:  # un-merged ingest: every schedule pays the overlay
+        ns += delta_overlay_seconds(n_probes, delta_slots,
+                                    bucket_width=bucket_width,
+                                    backend=backend) * 1e9
+    return (ns + _SCHEDULE_OPS[schedule] * c.op_ns) * 1e-9
 
 
 def delta_overlay_seconds(n_probes: int, delta_slots: int,

@@ -5,10 +5,10 @@ gather math (the JAX package's ``"xla"``); ``"cuda"`` runs the hand-written
 kernels (its ``"pallas"``).  Execution is eager, so the JAX ``interpret``
 knob has no counterpart.
 
-Values the port does not run yet are refused at construction, naming the
-slice that brings them: the planner-driven ``"auto"`` schedule and fusion
-would price a CUDA backend with CPU costs, and the deduped and hot/cold
-probe schedules are not ported.
+``fusion="auto"`` is refused at construction, naming the planner slice
+that brings it: it would price a CUDA backend with CPU costs.
+``schedule="auto"`` is accepted; an engine on the card refuses it until
+that slice (``SSBEngine``), for the same reason.
 """
 from __future__ import annotations
 
@@ -16,16 +16,11 @@ import dataclasses
 
 MODES = ("jspim", "baseline", "pid")
 KERNELS = ("torch", "cuda")
-SCHEDULES = ("gathered", "stream")
+SCHEDULES = ("auto", "gathered", "stream", "deduped", "hot_cold")
 FUSIONS = ("mega", "composed")
 
 _NOT_PORTED = {
-    ("schedule", "auto"): "the planner slice (ROADMAP Queue 1 item 5)",
     ("fusion", "auto"): "the planner slice (ROADMAP Queue 1 item 5)",
-    ("schedule", "deduped"): "the probe-schedule slice (ROADMAP Queue 1 "
-                             "item 3)",
-    ("schedule", "hot_cold"): "the probe-schedule slice (ROADMAP Queue 1 "
-                              "item 3)",
 }
 
 
@@ -55,9 +50,13 @@ class ExecutionPolicy:
     kernel    -- probe implementation: "cuda" hand-written kernels (the
                  plain versions on CPU tensors), "torch" gather math.
     schedule  -- probe schedule: "gathered" (``probe_rows``, one thread per
-                 probe) or "stream" (``bucket_probe_stream``, W lanes of a
-                 warp per probe); filtered cold probes take the filter
-                 kernels under either.
+                 probe), "stream" (``bucket_probe_stream``, W lanes of a
+                 warp per probe), "deduped" (coalesce, probe the unique
+                 keys), "hot_cold" (a replicated hot table plus a deduped
+                 cold remainder), or "auto" (the planner picks one per
+                 dimension from the fact-side skew; CPU engines only until
+                 the planner slice).  Filtered cold probes take the filter
+                 kernels under every schedule.
     fusion    -- "mega" one fused_query launch per query, "composed" the
                  per-stage pipeline.
     use_cache -- default for the cross-query probe cache on ``run``.

@@ -1,16 +1,18 @@
 """Column-store engine (PyTorch port): SSB tables, joins, the 13 queries,
-dimension ingest and compaction."""
-from repro_torch.engine.convert import dim_index_from_numpy, tables_from_numpy
+dimension ingest and compaction, the skew-aware probe schedules."""
+from repro_torch.engine.convert import (build_stats_from, dim_index_from_numpy,
+                                        tables_from_numpy)
 from repro_torch.engine.join import (BuildStats, DimIndex, build_dim_index,
                                      compact_index, effective_index,
-                                     ingest_index, lookup, lookup_filtered)
+                                     ingest_index, join_pairs, lookup,
+                                     lookup_filtered)
 from repro_torch.engine.queries import SSB_QUERIES, SSBEngine
 from repro_torch.engine.ssb import (generate_ssb, generate_ssb_dims,
                                     random_mutation)
 from repro_torch.engine.table import Table, resolve_device
 
-__all__ = ["dim_index_from_numpy", "tables_from_numpy", "BuildStats",
-           "DimIndex", "build_dim_index", "compact_index", "effective_index",
-           "ingest_index", "lookup", "lookup_filtered", "SSB_QUERIES",
-           "SSBEngine", "generate_ssb", "generate_ssb_dims",
+__all__ = ["build_stats_from", "dim_index_from_numpy", "tables_from_numpy",
+           "BuildStats", "DimIndex", "build_dim_index", "compact_index",
+           "effective_index", "ingest_index", "join_pairs", "lookup",
+           "lookup_filtered", "SSB_QUERIES", "SSBEngine", "generate_ssb", "generate_ssb_dims",
            "random_mutation", "Table", "resolve_device"]

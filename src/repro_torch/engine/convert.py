@@ -3,7 +3,9 @@
 ``dim_index_from_numpy`` rebuilds a ``DimIndex`` from the arrays of an
 index built elsewhere (for instance by the JAX package), so that
 ``SSBEngine(tables, indexes=...)`` answers queries on the very same hash
-dataset.  Only numpy arrays cross this boundary.
+dataset.  ``build_stats_from`` carries its ``BuildStats`` over, the
+fact-side skew included, so the planner sees what the other engine saw.
+Only numpy arrays and plain Python values cross this boundary.
 """
 from __future__ import annotations
 
@@ -15,6 +17,7 @@ import torch
 from repro_torch.core.delta import DeltaTable
 from repro_torch.core.dictionary import Dictionary
 from repro_torch.core.hash_table import JSPIMTable
+from repro_torch.core.skew import SkewStats
 from repro_torch.engine.join import BuildStats, DimIndex
 from repro_torch.engine.table import Table
 
@@ -27,6 +30,25 @@ def tables_from_numpy(cols_by_table: Mapping[str, Mapping[str, np.ndarray]],
     """``{table: {column: array}}`` -> port tables on ``device``."""
     return {name: Table.from_numpy(cols, device)
             for name, cols in cols_by_table.items()}
+
+
+def build_stats_from(stats) -> BuildStats | None:
+    """A port ``BuildStats`` from any object with its fields (for instance
+    the JAX package's ``BuildStats``), read field by field; ``fact_skew``
+    likewise becomes a port ``SkewStats``.  ``None`` stays ``None``."""
+    if stats is None:
+        return None
+    sk = stats.fact_skew
+    fact_skew = None if sk is None else SkewStats(
+        n=int(sk.n), distinct=int(sk.distinct),
+        dup_factor=float(sk.dup_factor), max_share=float(sk.max_share),
+        top_share=tuple(float(x) for x in sk.top_share))
+    return BuildStats(
+        num_buckets=int(stats.num_buckets),
+        bucket_width=int(stats.bucket_width), n_unique=int(stats.n_unique),
+        n_build=int(stats.n_build), overflow=int(stats.overflow),
+        grow_retries=int(stats.grow_retries), load=float(stats.load),
+        fact_skew=fact_skew)
 
 
 def dim_index_from_numpy(arrays: Mapping[str, Mapping], stats: BuildStats

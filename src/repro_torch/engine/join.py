@@ -15,7 +15,10 @@ on every device: on the card one bucket's keys are one 32-byte sector, and
 the CPU tests build the same geometry as the JAX package on the CPU.  (The
 JAX package picks 128 on a TPU, one VMEM lane row.)
 
-The fact-skew statistics wait for the planner slice.
+``BuildStats.fact_skew`` records the skew of the fact-side FK column an
+index is probed with (``build_dim_index(fact_keys=)``), the input of the
+probe-schedule planner.  ``lookup`` runs every schedule: gathered,
+stream, deduped and hot/cold (``plan=`` and ``hot_codes=``).
 """
 from __future__ import annotations
 
@@ -33,7 +36,11 @@ from repro_torch.core.dictionary import (NO_CODE, Dictionary,
                                          extend_dictionary)
 from repro_torch.core.hash_table import (JSPIMTable, build_table,
                                          suggest_num_buckets, table_entries)
-from repro_torch.core.lookup import ProbeResult, overlay_delta, probe
+from repro_torch.core.lookup import (JoinResult, ProbeResult,
+                                     build_hot_table, join, overlay_delta,
+                                     probe, probe_deduped, probe_hot_cold)
+from repro_torch.core.planner import SchedulePlan
+from repro_torch.core.skew import SkewStats, measure_skew
 from repro_torch.kernels.ops import (delta_slot_words, probe_table,
                                      probe_table_filtered,
                                      probe_table_filtered_delta,
@@ -53,6 +60,9 @@ class BuildStats:
     overflow: int        # residual dropped entries (0 unless growth capped)
     grow_retries: int    # times num_buckets was doubled to absorb overflow
     load: float          # requested target load factor
+    # fact-side skew of the FK column this index is probed with (planner
+    # input, §3.3 / §4.1); None if unknown
+    fact_skew: SkewStats | None = None
 
     @property
     def achieved_load(self) -> float:
@@ -71,12 +81,19 @@ class DimIndex:
 
 
 def build_dim_index(dim_keys: torch.Tensor, *, bucket_width: int | None = None,
-                    load: float = 0.5, max_grow_retries: int = 8) -> DimIndex:
+                    load: float = 0.5, max_grow_retries: int = 8,
+                    fact_keys=None) -> DimIndex:
     """Encode the build column, then build the unique-key hash table whose
     values are dimension-row indices.  Lossless: on bucket overflow the
-    bucket count doubles (up to ``max_grow_retries`` times)."""
+    bucket count doubles (up to ``max_grow_retries`` times).
+
+    ``fact_keys`` (optional; a tensor, measured on its own device, or a
+    numpy array) is the fact-side FK column this index will be probed
+    with; its ``measure_skew`` summary lands on ``BuildStats.fact_skew``.
+    """
     bucket_width = bucket_width or DEFAULT_BUCKET_WIDTH
     n = int(dim_keys.shape[0])
+    fact_skew = measure_skew(fact_keys) if fact_keys is not None else None
     dev = dim_keys.device
     d = build_dictionary(dim_keys, capacity=max(1, n))
     codes = encode(d, dim_keys)
@@ -93,7 +110,7 @@ def build_dim_index(dim_keys: torch.Tensor, *, bucket_width: int | None = None,
     stats = BuildStats(num_buckets=nb, bucket_width=bucket_width,
                        n_unique=int(tbl.n_unique), n_build=n,
                        overflow=int(tbl.overflow), grow_retries=retries,
-                       load=load)
+                       load=load, fact_skew=fact_skew)
     return DimIndex(dictionary=d, table=tbl, stats=stats)
 
 
@@ -227,30 +244,54 @@ def effective_index(index: DimIndex) -> DimIndex:
     return index
 
 
+def probe_fn_for(impl: str):
+    """The probe every schedule runs on ``impl``: ``probe_rows`` (through
+    ``probe_table``) on "cuda", the plain gather on "torch"."""
+    if impl not in ("cuda", "torch"):
+        raise ValueError(f"unknown impl {impl!r}")
+    return probe_table if impl == "cuda" else probe
+
+
 def lookup(index: DimIndex, fact_keys: torch.Tensor, *,
-           impl: str = "cuda", schedule: str = "gathered") -> ProbeResult:
+           impl: str = "cuda", schedule: str | None = None,
+           plan: SchedulePlan | None = None,
+           hot_codes: torch.Tensor | None = None) -> ProbeResult:
     """Probe fact keys; for PK dimensions the payload is the dimension-row
     index.
 
-    ``schedule="gathered"`` probes through ``probe_rows`` on ``impl="cuda"``
-    and the plain gather on ``"torch"``; ``"stream"`` probes through
-    ``bucket_probe_stream`` whatever ``impl`` is (as the JAX package's
-    stream schedule always runs its Pallas kernel).  A live delta is
-    overlaid after any schedule, probed with the raw fact keys: keys
-    ingested since the last compaction have no dictionary code yet.
+    ``schedule`` ("gathered" | "stream" | "deduped" | "hot_cold") names the
+    probe schedule; ``plan`` (a planner decision) supplies it when
+    ``schedule`` is None, and the hot/cold geometry; with neither the
+    schedule is "gathered".  ``hot_cold`` needs a ``plan`` and
+    ``hot_codes`` (hottest-first dictionary codes, or the full code range
+    for a ``full_map`` plan).  Every probe a schedule makes runs through
+    ``probe_rows`` on ``impl="cuda"`` and the plain gather on ``"torch"``;
+    ``"stream"`` runs ``bucket_probe_stream`` whatever ``impl`` is (as the
+    JAX package's stream schedule always runs its Pallas kernel).  A live
+    delta is overlaid after any schedule, probed with the raw fact keys:
+    keys ingested since the last compaction have no dictionary code yet.
     """
-    if impl not in ("cuda", "torch"):
-        raise ValueError(f"unknown impl {impl!r}")
+    probe_fn = probe_fn_for(impl)
+    if schedule is None:
+        schedule = plan.schedule if plan is not None else "gathered"
     index = effective_index(index)
     codes = encode(index.dictionary, fact_keys)
-    if schedule == "stream":
+    if schedule == "hot_cold":
+        if plan is None or hot_codes is None:
+            raise ValueError("hot_cold needs a plan and hot_codes")
+        hot = build_hot_table(index.table, hot_codes, plan.hot_slots,
+                              probe_fn=probe_fn)
+        pr = probe_hot_cold(index.table, codes, hot,
+                            cold_capacity=plan.cold_capacity,
+                            dedup_cold=plan.dedup_cold, probe_fn=probe_fn)
+    elif schedule == "stream":
         pr = probe_table(index.table, codes, schedule="stream")
-    elif schedule != "gathered":
-        raise ValueError(f"unknown schedule {schedule!r}")
-    elif impl == "cuda":
-        pr = probe_table(index.table, codes)
+    elif schedule == "deduped":
+        pr = probe_deduped(index.table, codes, probe_fn=probe_fn)
+    elif schedule == "gathered":
+        pr = probe_fn(index.table, codes)
     else:
-        pr = probe(index.table, codes)
+        raise ValueError(f"unknown schedule {schedule!r}")
     if index.delta is not None:
         pr = overlay_delta(pr, index.delta, fact_keys)
     return pr
@@ -288,3 +329,14 @@ def lookup_filtered(index: DimIndex, fact_keys: torch.Tensor,
         & (pr.payload >= 0) & (pr.payload < n)
     keep = torch.where(pr.is_dup, True, row_ok)
     return ProbeResult(pr.found & keep, pr.payload, pr.is_dup)
+
+
+def join_pairs(index: DimIndex, fact_keys: torch.Tensor, *, capacity: int,
+               deduped: bool = True, impl: str = "cuda") -> JoinResult:
+    """General join (duplication-list expansion), fixed output capacity:
+    ``left`` are fact-row indices, ``right`` dimension-row indices.  The
+    probe runs through ``probe_rows`` on ``impl="cuda"``."""
+    probe_fn = probe_fn_for(impl)
+    codes = encode(index.dictionary, fact_keys)
+    return join(index.table, codes, capacity=capacity, deduped=deduped,
+                probe_fn=probe_fn)

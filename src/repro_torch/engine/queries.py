@@ -24,14 +24,23 @@ Execution (eager; no compiled programs):
     ``fused_query`` launch over per-slot attribute planes, the delta's
     included.
 
+Probe schedules (§3.3): every dimension carries a ``SchedulePlan``
+(``plans``), from ``plan_probe`` over the fact-side skew measured when its
+index was built.  ``schedule="auto"`` lets the planner pick per dimension;
+"gathered" / "stream" / "deduped" / "hot_cold" force one everywhere.  A
+dimension is re-planned when its delta appears or grows and after it is
+compacted.  On a CUDA engine ``"auto"`` raises ``NotImplementedError`` at
+construction until the planner slice (the cost model has no card entry);
+the forced schedules run.
+
 Mutation (§3.2.3): ``ingest`` / ``append_rows`` buffer dimension ops in a
 per-dimension delta, ``compact`` folds it back, and the update commands
 rewrite table cells; each drops the dimension's cached probes.  The fact
-append, durability, mutation hooks, epoch snapshots and the probe-schedule
-planner wait for later slices.  Compaction planning is priced only on a
-CPU engine: on a CUDA engine ``compaction_plan`` and
-``ingest(auto_compact=True)`` raise ``NotImplementedError`` until the
-planner slice, and the caller compacts with ``compact(dim)``.
+append, durability, mutation hooks and epoch snapshots wait for later
+slices.  Compaction planning is priced only on a CPU engine: on a CUDA
+engine ``compaction_plan`` and ``ingest(auto_compact=True)`` raise
+``NotImplementedError`` until the planner slice, and the caller compacts
+with ``compact(dim)``.
 """
 from __future__ import annotations
 
@@ -46,12 +55,17 @@ from repro_torch.core import hash_table as _ht
 from repro_torch.core.delta import TOMBSTONE, delta_is_empty, delta_stats
 from repro_torch.core.dictionary import encode
 from repro_torch.core.hash_table import hash_bucket
-from repro_torch.core.planner import CompactionPlan, plan_compaction
+from repro_torch.core.lookup import build_hot_table, hot_hit_count
+from repro_torch.core.planner import (CompactionPlan, SchedulePlan,
+                                      plan_compaction, plan_probe,
+                                      refine_plan)
 from repro_torch.core.policy import ExecutionPolicy, check_value
+from repro_torch.core.skew import top_keys
 from repro_torch.engine import baselines
 from repro_torch.engine.join import (DimIndex, build_dim_index,
                                      compact_index, effective_index,
-                                     ingest_index, lookup, lookup_filtered)
+                                     ingest_index, lookup, lookup_filtered,
+                                     probe_fn_for)
 from repro_torch.engine.table import Table, resolve_device
 from repro_torch.kernels.fused_query import fused_query
 from repro_torch.kernels.ref import segment_sum
@@ -290,6 +304,8 @@ class _QueryRunner:
     policy: ExecutionPolicy
     tables: dict[str, Table]
     indexes: dict[str, DimIndex]
+    plans: dict[str, SchedulePlan]
+    _hot_codes: dict[str, torch.Tensor]
 
     @property
     def mode(self) -> str:
@@ -309,7 +325,7 @@ class _QueryRunner:
     # -- join primitive: (found, dim_row) per fact row ---------------------
     def _join(self, dim: str, dim_mask: torch.Tensor | None = None
               ) -> tuple[torch.Tensor, torch.Tensor]:
-        """Probe one dimension under the policy's schedule.  With
+        """Probe one dimension under its planned schedule.  With
         ``dim_mask`` on the CUDA kernel the predicate is folded into the
         probe (``probe_filter_rows``, or ``probe_filter_rows_delta`` with a
         live delta) whatever the schedule, as in the JAX package."""
@@ -320,7 +336,8 @@ class _QueryRunner:
                 pr = lookup_filtered(index, fk, dim_mask, impl="cuda")
             else:
                 pr = lookup(index, fk, impl=self.probe_impl,
-                            schedule=self.schedule)
+                            plan=self.plans.get(dim),
+                            hot_codes=self._hot_codes.get(dim))
             return pr.found, torch.where(pr.found, pr.payload, -1)
         dk = self.tables[dim][DIM_PK[dim]]
         if self.mode == "baseline":
@@ -402,7 +419,10 @@ class SSBEngine(_QueryRunner):
     ``device`` defaults to the CUDA card and must hold the tables; with no
     card and no ``device="cpu"`` the constructor raises ``RuntimeError``.
     ``indexes`` adopts prebuilt ``DimIndex``es (``engine/convert.py``
-    carries the JAX package's over) instead of building them.
+    carries the JAX package's over) instead of building them; their
+    ``fact_skew`` feeds the planner.  A jspim engine on the card refuses
+    ``schedule="auto"`` with ``NotImplementedError`` before it builds
+    anything (no cost entry for the card until the planner slice).
     """
 
     def __init__(self, tables: dict[str, Table], *,
@@ -410,6 +430,12 @@ class SSBEngine(_QueryRunner):
                  policy: ExecutionPolicy | None = None, device=None):
         self.policy = policy if policy is not None else ExecutionPolicy()
         self.device = resolve_device(device)
+        if self.mode == "jspim" and self.schedule == "auto" and \
+                self.device.type == "cuda":
+            raise NotImplementedError(
+                'schedule="auto" is not priced on a CUDA card yet: it '
+                "arrives with the planner slice (ROADMAP Queue 1 item 5); "
+                "force a schedule")
         for name, t in tables.items():
             if t.device != self.device:
                 raise ValueError(f"table {name!r} lives on {t.device}, the "
@@ -418,13 +444,21 @@ class SSBEngine(_QueryRunner):
         # must not reach another engine built from the same mappings
         self.tables = dict(tables)
         self.indexes: dict[str, DimIndex] = {}
+        self.plans: dict[str, SchedulePlan] = {}
+        self._hot_codes: dict[str, torch.Tensor] = {}
         if self.mode == "jspim":
             if indexes is not None:
                 self.indexes = dict(indexes)
             else:
-                # built once, reused across queries (§3.2.3 persistence)
+                # built once, reused across queries (§3.2.3 persistence);
+                # the fact FK column rides along so BuildStats records its
+                # skew (measured on the engine's device)
                 for dim, pk in DIM_PK.items():
-                    self.indexes[dim] = build_dim_index(tables[dim][pk])
+                    self.indexes[dim] = build_dim_index(
+                        tables[dim][pk],
+                        fact_keys=tables["lineorder"][FACT_FK[dim]])
+            for dim in self.indexes:
+                self._plan_dim(dim)
         # cross-query probe cache: dim -> (found, dim_row) over fact rows
         self._probe_cache: dict[str, tuple[torch.Tensor, torch.Tensor]] = {}
         self._hits = 0
@@ -432,6 +466,44 @@ class SSBEngine(_QueryRunner):
         self._invalidations = 0
         self._ingest_batches = 0
         self._compactions = 0
+
+    # -- skew-adaptive probe planning (§3.3) -------------------------------
+    def _plan_dim(self, dim: str) -> None:
+        """Plan the probe schedule for one dimension and stage its hot
+        codes (hottest-first, or the full code range for a full map)."""
+        idx = self.indexes[dim]
+        st = idx.stats
+        force = None if self.schedule == "auto" else self.schedule
+        if st is None or st.fact_skew is None:
+            self.plans[dim] = SchedulePlan(schedule=force or "gathered")
+            return
+        # the code space is the dictionary's, not n_unique: deleted keys'
+        # codes stay allocated, so a full map sized by n_unique would drop
+        # live keys whose codes sit past it
+        plan = plan_probe(st.fact_skew, bucket_width=st.bucket_width,
+                          backend=self.device.type, impl=self.probe_impl,
+                          code_space=int(idx.dictionary.n),
+                          hash_mode=idx.table.hash_mode,
+                          delta_slots=(0 if idx.delta is None
+                                       else idx.delta.num_slots),
+                          force=force)
+        if plan.schedule == "hot_cold":
+            fk = self.tables["lineorder"][FACT_FK[dim]]
+            if plan.full_map:
+                hot = torch.arange(plan.hot_entries, dtype=torch.int32,
+                                   device=self.device)
+            else:
+                hot = encode(idx.dictionary, torch.as_tensor(
+                    top_keys(fk, plan.hot_entries), device=self.device))
+                # tighten the cold capacity to the exact measured count
+                ht = build_hot_table(idx.table, hot, plan.hot_slots,
+                                     probe_fn=probe_fn_for(self.probe_impl))
+                codes = encode(idx.dictionary, fk)
+                cold = int(fk.shape[0]
+                           - hot_hit_count(idx.table, ht, codes))
+                plan = refine_plan(plan, cold, int(fk.shape[0]))
+            self._hot_codes[dim] = hot
+        self.plans[dim] = plan
 
     @property
     def build_stats(self):
@@ -544,10 +616,17 @@ class SSBEngine(_QueryRunner):
             self._check_plannable()
         if keys.shape[0] == 0:  # zero ops change no state
             return self.compaction_plan(dim) if priced else None
+        before = self.indexes[dim].delta
         self.indexes[dim] = ingest_index(self.indexes[dim], keys, payloads,
                                          op=op)
         self._ingest_batches += 1
         self.invalidate_probe_cache(dim)
+        after = self.indexes[dim].delta
+        if before is None or before.num_slots != after.num_slots:
+            # the delta appeared (or grew): re-plan so the estimates price
+            # the live overlay (it is schedule-independent, so the pick
+            # itself cannot change)
+            self._plan_dim(dim)
         if not priced:
             return None
         plan = self.compaction_plan(dim)
@@ -637,6 +716,8 @@ class SSBEngine(_QueryRunner):
         self.indexes[dim] = compact_index(idx)
         self._compactions += 1
         self.invalidate_probe_cache(dim)
+        # the code space and geometry changed: re-plan
+        self._plan_dim(dim)
 
     def ingest_info(self) -> dict:
         """Ingest/compaction counters + per-dim delta occupancy."""

@@ -7,6 +7,8 @@ from repro_torch.kernels.bucket_probe import (
     bucket_probe_stream, bucket_probe_stream_plain, probe_filter_rows,
     probe_filter_rows_delta, probe_filter_rows_delta_plain,
     probe_filter_rows_plain, probe_rows, probe_rows_plain)
+from repro_torch.kernels.coalesce_window import (coalesce_window_mask,
+                                                 coalesce_window_mask_plain)
 from repro_torch.kernels.fused_query import fused_query, fused_query_plain
 from repro_torch.kernels.ops import (KERNEL_REGISTRY, KernelOp,
                                      delta_slot_words, probe_table,
@@ -22,7 +24,8 @@ from repro_torch.kernels.ref import (NULL_WORD, bucket_probe_ref,
 __all__ = ["bucket_probe_stream", "bucket_probe_stream_plain",
            "probe_filter_rows", "probe_filter_rows_delta",
            "probe_filter_rows_delta_plain", "probe_filter_rows_plain",
-           "probe_rows", "probe_rows_plain", "fused_query",
+           "probe_rows", "probe_rows_plain", "coalesce_window_mask",
+           "coalesce_window_mask_plain", "fused_query",
            "fused_query_plain", "KERNEL_REGISTRY", "KernelOp",
            "delta_slot_words", "probe_table", "probe_table_filtered",
            "probe_table_filtered_delta", "register_kernel", "slot_predicate",

@@ -46,6 +46,10 @@ SIGNATURES = {
         # groups, num_segments, grid, stream
         "fused_query_launch": (_P, _P, _I32, _P, _I64, _P, _I32, _I32, _P),
     },
+    "coalesce_window": {
+        # keys, out, m, window, stream
+        "coalesce_window_mask_launch": (_P, _P, _I64, _I32, _P),
+    },
 }
 
 _LIBS: dict[str, ctypes.CDLL] = {}

@@ -10,6 +10,7 @@ the TPU kernel it replaces and deterministic operand cases.  The cases are
 the JAX registry's (``repro/kernels/ops.py``), drawn from the same numpy
 seeds and built with the port's own ``core/delta.py``, in the port's
 calling convention: table planes plus bucket ids instead of gathered rows.
+``coalesce_window_mask`` adds a Zipf stream to the reference's case.
 """
 from __future__ import annotations
 
@@ -24,10 +25,13 @@ from repro_torch.core.delta import (TOMBSTONE, DeltaTable, delete_batch,
 from repro_torch.core.hash_table import (EMPTY_KEY, HASH_FIBONACCI,
                                          JSPIMTable, build_table, hash_bucket)
 from repro_torch.core.lookup import NULL_WORD, ProbeResult, unpack_words
+from repro_torch.core.skew import zipf_sample
 from repro_torch.kernels.bucket_probe import (
     bucket_probe_stream, bucket_probe_stream_plain, probe_filter_rows,
     probe_filter_rows_delta, probe_filter_rows_delta_plain,
     probe_filter_rows_plain, probe_rows, probe_rows_plain)
+from repro_torch.kernels.coalesce_window import (coalesce_window_mask,
+                                                 coalesce_window_mask_plain)
 from repro_torch.kernels.fused_query import fused_query, fused_query_plain
 
 
@@ -235,6 +239,15 @@ def _fused_query_cases(device="cpu"):
     return cases
 
 
+def _coalesce_cases(device="cpu"):
+    """The reference's duplicate-heavy stream, then a Zipf(1.5) stream
+    long enough to cross several 256-key blocks; window 8."""
+    rng = np.random.default_rng(3)
+    return [("dup_stream", (_t(rng.integers(0, 9, 100), device),), {}),
+            ("zipf_stream",
+             (_t(zipf_sample(200, 1000, 1.5, seed=25), device),), {})]
+
+
 register_kernel(KernelOp(
     "probe_rows", probe_rows, probe_rows_plain, ("cuda",),
     _probe_rows_cases, "src/repro_torch/kernels/csrc/bucket_probe.cu",
@@ -256,3 +269,8 @@ register_kernel(KernelOp(
     "fused_query", fused_query, fused_query_plain, ("cuda",),
     _fused_query_cases, "src/repro_torch/kernels/csrc/fused_query.cu",
     "src/repro/kernels/fused_query.py:140"))
+register_kernel(KernelOp(
+    "coalesce_window_mask", coalesce_window_mask, coalesce_window_mask_plain,
+    ("cuda",), _coalesce_cases,
+    "src/repro_torch/kernels/csrc/coalesce_window.cu",
+    "src/repro/kernels/coalesce_window.py:50"))

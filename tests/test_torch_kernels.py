@@ -32,7 +32,7 @@ from repro_torch.kernels.fused_query import _gather, fused_query
 REGISTRY_CASES = [("probe_rows", 0), ("bucket_probe_stream", 0),
                   ("probe_filter_rows", 0)] + \
     [("probe_filter_rows_delta", i) for i in range(3)] + \
-    [("fused_query", i) for i in range(4)]
+    [("fused_query", i) for i in range(4)] + [("coalesce_window_mask", 0)]
 
 
 def _t(a) -> torch.Tensor:
@@ -50,8 +50,8 @@ def _eq(got, want, msg=""):
 
 def test_registry_lists_the_on_path_kernels():
     assert sorted(tops.KERNEL_REGISTRY) == [
-        "bucket_probe_stream", "fused_query", "probe_filter_rows",
-        "probe_filter_rows_delta", "probe_rows"]
+        "bucket_probe_stream", "coalesce_window_mask", "fused_query",
+        "probe_filter_rows", "probe_filter_rows_delta", "probe_rows"]
     assert all(len(tops.KERNEL_REGISTRY[n].make_cases("cpu")) > i
                for n, i in REGISTRY_CASES)
     for name, op in tops.KERNEL_REGISTRY.items():
@@ -70,8 +70,8 @@ def test_registry_case_matches_pallas_interpret(name, i):
         gathered = tuple(_gather(ops) for ops in pargs[0])
         _eq(gathered, jargs[0], "dim operands")
         _eq(pargs[1], jargs[1], "fmeasure")
-    elif name == "bucket_probe_stream":  # both take the table planes
-        _eq(pargs, jargs, "operands")
+    elif name in ("bucket_probe_stream", "coalesce_window_mask"):
+        _eq(pargs, jargs, "operands")  # the same operands in both
     elif name == "probe_filter_rows_delta":
         tk, tv, tp, pk, bids, dtk, dtw, raw, dbids = pargs
         b, db = bids.long(), dbids.long()
@@ -86,6 +86,20 @@ def test_registry_case_matches_pallas_interpret(name, i):
     want = jops.KERNEL_REGISTRY[name].fn(*jargs, **jkw, interpret=True)
     _eq(got, want)
     _eq(tops.KERNEL_REGISTRY[name].plain_fn(*pargs, **pkw), want)
+
+
+def test_coalesce_window_zipf_case_matches_pallas_interpret():
+    """The port's second case (a Zipf stream over several 256-key blocks),
+    which the reference registry lacks, against the Pallas kernel."""
+    from repro.kernels.coalesce_window import coalesce_window_mask as jcwm
+    op = tops.KERNEL_REGISTRY["coalesce_window_mask"]
+    name, (keys,), kw = op.make_cases("cpu")[1]
+    assert name == "zipf_stream" and keys.shape == (1000,)
+    want = jcwm(jnp.asarray(keys.numpy()), window=8, block=256,
+                interpret=True)
+    _eq(op.fn(keys, **kw), want)
+    _eq(op.plain_fn(keys, **kw), want)
+    assert int(op.fn(keys, **kw).sum()) > 0
 
 
 def _sweep_table(width, n_keys=200, seed=0):
