@@ -10,7 +10,8 @@ Phases (each raises on failure; nothing is caught):
    ``nvcc`` (one process per source, all at once) and time it.
 3. Kernels against their plain versions on the card, bit for bit: every
    registry case, then the real operands of the generated data (every
-   dimension's probes through ``probe_rows``, ``bucket_probe_stream`` and
+   dimension's predicate plane through ``pack_bits``, its probes
+   through ``probe_rows``, ``bucket_probe_stream`` and
    ``probe_filter_rows``, in chunks of at most 4M for the plain version,
    and all 13 queries' ``fused_query`` operands).
 4. Main path: ``generate_ssb(sf)`` -> ``SSBEngine(tables)``, then the 13
@@ -49,7 +50,9 @@ Phases (each raises on failure; nothing is caught):
 8. Numbers: per-query wall times per path, per-kernel device time per
    launch (CUDA events) beside the plain version's, the bytes each launch
    must move and the bound they set, ingest and compact times, peak device
-   memory.
+   memory.  ``probe_rows`` and the two filter kernels are also timed on
+   every dimension's operands (tables from date's to part's), with their
+   launches per pass there.
 
 The line before the last is the kernel table as JSON; the last line is
 ``{"ok": true, "device": {...}}``.  Exits non-zero, printing no result,
@@ -79,17 +82,21 @@ PLAIN_REPS = 3
 # probes), 13 cold queries (32 filtered probes, 4 unfiltered) and 13 mega
 # queries (phase 4, and phase 6 after compaction); the stream schedule's
 # cached and cold paths (phase 5); the live-delta paths (phase 6)
+# (``pack_bits``, the filter kernels' packing of the predicate plane, runs
+# once before each filter kernel, and once more for the delta's key plane)
 _ZERO = {"probe_rows": 0, "bucket_probe_stream": 0, "probe_filter_rows": 0,
          "probe_filter_rows_delta": 0, "fused_query": 0,
-         "coalesce_window_mask": 0}
+         "coalesce_window_mask": 0, "pack_bits": 0}
 EXPECTED_LAUNCHES = dict(_ZERO, probe_rows=8, probe_filter_rows=32,
-                         fused_query=13)
-EXPECTED_STREAM = dict(_ZERO, bucket_probe_stream=8, probe_filter_rows=32)
+                         pack_bits=32, fused_query=13)
+EXPECTED_STREAM = dict(_ZERO, bucket_probe_stream=8, probe_filter_rows=32,
+                       pack_bits=32)
 EXPECTED_LIVE = dict(_ZERO, probe_rows=8, probe_filter_rows_delta=32,
-                     fused_query=13)
+                     pack_bits=64, fused_query=13)
 # deduped: one probe_rows per unfiltered probe (of the unique keys), as
 # gathered; hot_cold: see hot_cold_launches
-EXPECTED_DEDUPED = dict(_ZERO, probe_rows=8, probe_filter_rows=32)
+EXPECTED_DEDUPED = dict(_ZERO, probe_rows=8, probe_filter_rows=32,
+                        pack_bits=32)
 # one pass of the skew phase per s: gathered 1, deduped 1 and hot_cold 2
 # (hot-table words, cold remainder) probe_rows, stream 1, the window 1
 EXPECTED_SKEW = dict(_ZERO, probe_rows=4, bucket_probe_stream=1,
@@ -110,6 +117,9 @@ MUTATION_FRAC = 0.005
 # the query with the most dimensions and the largest group space
 TIMED_DIM = "part"
 TIMED_QUERY = "Q4.3"
+# the probe kernels timed on every dimension's operands, not only part's
+PER_DIM_KERNELS = ("probe_rows", "probe_filter_rows",
+                   "probe_filter_rows_delta")
 # the dimension predicate each filter-kernel check uses
 FILTER_QUERY = {"customer": "Q3.1", "supplier": "Q2.1", "part": "Q2.1",
                 "date": "Q1.1"}
@@ -150,6 +160,7 @@ def main() -> int:
                                     generate_ssb, lookup)
     from repro_torch.engine.queries import DIM_PK, FACT_FK, _mega_operands
     from repro_torch.kernels import _build
+    from repro_torch.kernels.bucket_probe import pack_bits, pack_bits_plain
     from repro_torch.kernels.ops import (KERNEL_REGISTRY, delta_slot_words,
                                          probe_table, slot_predicate)
 
@@ -189,8 +200,11 @@ def main() -> int:
         it; returns (its result, the counts just after)."""
         for op in KERNEL_REGISTRY.values():
             op.fn.launches = 0
+        pack_bits.launches = 0
         out = fn()
-        return out, {n: op.fn.launches for n, op in KERNEL_REGISTRY.items()}
+        return out, dict({n: op.fn.launches
+                          for n, op in KERNEL_REGISTRY.items()},
+                         pack_bits=pack_bits.launches)
 
     def check_counts(got, want, what):
         log(f"[launches] {what}: {json.dumps(got)}")
@@ -221,6 +235,8 @@ def main() -> int:
                                       else "")
             elif "Used" in line:
                 log(f"[ptxas] {name} {entry}: {line.split(':', 1)[1].strip()}")
+            elif "spill" in line and " 0 bytes spill stores" not in line:
+                log(f"[ptxas] {name} {entry}: {line.strip()}")
 
     # -- 3a. kernels against plain versions: registry cases --------------------
     err = {name: 0 for name in KERNEL_REGISTRY}
@@ -269,7 +285,9 @@ def main() -> int:
 
     def check_probe_kernel(name, ops, vector_idx, dim, n_ops_per_probe):
         """Hold one probe kernel against its plain version (in chunks of
-        the probe vectors) on real operands; time it on ``TIMED_DIM``."""
+        the probe vectors) on real operands; time the kernel on every
+        dimension (``PER_DIM_KERNELS``) or on ``TIMED_DIM``, and its plain
+        version on ``TIMED_DIM``."""
         op = KERNEL_REGISTRY[name]
         got = op.fn(*ops)
 
@@ -282,17 +300,32 @@ def main() -> int:
         if e:
             raise AssertionError(f"{name} on {dim} differs from its plain "
                                  f"version by {e}")
+        if dim != TIMED_DIM and name not in PER_DIM_KERNELS:
+            return
+        # the hash mode travels as a string: only tensors move bytes
+        moved = nbytes(*(t for t in ops if torch.is_tensor(t))) + 4 * n_fact
+        b_ms, b_by = bound(moved, n_fact * n_ops_per_probe)
+        ms = event_ms(lambda: op.fn(*ops), KERNEL_REPS)
+        if name in PER_DIM_KERNELS:
+            per_dim.setdefault(name, {})[dim] = {
+                "table": tuple(ops[0].shape), "ms": ms, "bytes": moved,
+                "bound_ms": b_ms}
         if dim == TIMED_DIM:
-            moved = nbytes(*ops) + 4 * n_fact
-            b_ms, b_by = bound(moved, n_fact * n_ops_per_probe)
             rows[name] = {
                 "shape": f"{dim}: {n_fact} probes, table "
-                         f"{tuple(ops[0].shape)}", "bytes": moved,
-                "ms": event_ms(lambda: op.fn(*ops), KERNEL_REPS),
+                         f"{tuple(ops[0].shape)}", "bytes": moved, "ms": ms,
                 "plain_ms": event_ms(plain, PLAIN_REPS),
                 "bound_ms": b_ms, "bound_by": b_by}
 
-    rows = {}
+    def check_pack(plane, test, dim):
+        """``pack_bits`` against its plain version; ms per launch."""
+        got, want = pack_bits(plane, test), pack_bits_plain(plane, test)
+        if not all(map(torch.equal, got, want)):
+            raise AssertionError(f"pack_bits({test}) on {dim} differs from "
+                                 "its plain version")
+        return event_ms(lambda: pack_bits(plane, test), KERNEL_REPS)
+
+    rows, per_dim, pack_ms = {}, {}, {}
     for dim, index in engine.indexes.items():
         tbl = index.table
         w = tbl.bucket_width
@@ -300,16 +333,17 @@ def main() -> int:
         bids = hash_bucket(codes, tbl.num_buckets, tbl.hash_mode)
         spec = SSB_QUERIES[FILTER_QUERY[dim]]
         pred = slot_predicate(tbl, spec.dim_filters[dim](tables[dim]))
-        for name, ops in (("probe_rows", (tbl.keys, tbl.values, codes, bids)),
-                          ("bucket_probe_stream",
-                           (tbl.keys, tbl.values, codes, bids)),
-                          ("probe_filter_rows",
-                           (tbl.keys, tbl.values, pred, codes, bids))):
-            check_probe_kernel(name, ops, (len(ops) - 2, len(ops) - 1), dim,
-                               2 * w + 4)
-        log(f"[parity] probe_rows, bucket_probe_stream, probe_filter_rows on "
-            f"{dim} ({n_fact} probes, {FILTER_QUERY[dim]} predicate): "
-            "bit-identical")
+        pack_ms[dim] = check_pack(pred, "positive", dim)
+        for name, ops, vectors in (
+                ("probe_rows", (tbl.keys, tbl.values, codes, bids), (2, 3)),
+                ("bucket_probe_stream", (tbl.keys, tbl.values, codes, bids),
+                 (2, 3)),
+                ("probe_filter_rows",
+                 (tbl.keys, tbl.values, pred, codes, tbl.hash_mode), (3,))):
+            check_probe_kernel(name, ops, vectors, dim, 2 * w + 4)
+        log(f"[parity] pack_bits, probe_rows, bucket_probe_stream, "
+            f"probe_filter_rows on {dim} ({n_fact} probes, "
+            f"{FILTER_QUERY[dim]} predicate): bit-identical")
         del codes, bids, pred
 
     def fused_plain_chunked(dim_ops, fmeasure, size):
@@ -505,7 +539,7 @@ def main() -> int:
         per probe, the hot-table words, plus the cold remainder unless the
         plan is a full map (or its fallback probe: also one launch)."""
         per = {d: 1 + (not p.full_map) for d, p in plans.items()}
-        return dict(_ZERO, probe_filter_rows=32,
+        return dict(_ZERO, probe_filter_rows=32, pack_bits=32,
                     probe_rows=sum(per.values())
                     + sum(per[d] for d in unfiltered))
 
@@ -596,18 +630,19 @@ def main() -> int:
         tbl, dl = idx.table, idx.delta
         fk = fact_cols[FACT_FK[dim]]
         codes = encode(idx.dictionary, fk)
-        bids = hash_bucket(codes, tbl.num_buckets, tbl.hash_mode)
         dmask = SSB_QUERIES[FILTER_QUERY[dim]].dim_filters[dim](
             mut.tables[dim])
-        dbids = hash_bucket(fk, dl.num_buckets, dl.hash_mode)
-        ops = (tbl.keys, tbl.values, slot_predicate(tbl, dmask), codes, bids,
-               dl.keys, delta_slot_words(dl, dmask), fk, dbids)
-        check_probe_kernel("probe_filter_rows_delta", ops, (3, 4, 7, 8), dim,
+        check_pack(dl.keys, "occupied", dim)
+        ops = (tbl.keys, tbl.values, slot_predicate(tbl, dmask), codes,
+               tbl.hash_mode, dl.keys, delta_slot_words(dl, dmask), fk,
+               dl.hash_mode)
+        check_probe_kernel("probe_filter_rows_delta", ops, (3, 7), dim,
                            2 * tbl.bucket_width + 2 * dl.bucket_width + 8)
-        log(f"[parity] probe_filter_rows_delta on {dim} ({n_fact} probes, "
+        log(f"[parity] pack_bits of the delta keys, probe_filter_rows_delta "
+            f"on {dim} ({n_fact} probes, "
             f"delta {tuple(dl.keys.shape)}, {FILTER_QUERY[dim]} predicate): "
             "bit-identical")
-        del codes, bids, dbids, ops
+        del codes, ops
     check_fused(mut, "live deltas")
     torch.cuda.empty_cache()
 
@@ -790,6 +825,26 @@ def main() -> int:
     log(f"[ingest] ms per call (ops per batch): {json.dumps(ingest_ms)}")
     log(f"[compact] ms per call: {json.dumps(compact_ms)}")
 
+    # launches per pass by dimension: a filter kernel per filtered probe of
+    # the 13 cold queries; probe_rows once per dimension on the cached path
+    # and per unfiltered cold probe
+    filtered = {d: sum(d in SSB_QUERIES[q].dim_filters for q in names)
+                for d in DIM_PK}
+    if sum(filtered.values()) != EXPECTED_LAUNCHES["probe_filter_rows"]:
+        raise AssertionError(f"filtered probes by dimension {filtered}")
+    by_dim = {"probe_rows": {d: 1 + unfiltered.count(d) for d in DIM_PK},
+              "probe_filter_rows": filtered,
+              "probe_filter_rows_delta": filtered}
+    for name, dims in per_dim.items():
+        for dim, r in dims.items():
+            n = by_dim[name][dim]
+            log(f"[kernel-dim] {name} on {dim} (table {r['table']}, "
+                f"{n_fact} probes): {r['ms']:.4f} ms/launch, moves "
+                f"{r['bytes']} bytes, bound {r['bound_ms']:.4f} ms; "
+                f"{n} launches per pass, launches x gap "
+                f"{n * (r['ms'] - r['bound_ms']):.4f} ms")
+    log(f"[kernel] pack_bits ms per launch on each predicate plane: "
+        f"{json.dumps({d: round(v, 4) for d, v in pack_ms.items()})}")
     for name, r in rows.items():
         log(f"[kernel] {name} at {r['shape']}: {r['ms']:.4f} ms/launch "
             f"(plain {r['plain_ms']:.4f} ms), moves {r['bytes']} bytes, "

@@ -4,7 +4,8 @@ Kernel sources live in ``csrc/`` and are compiled with ``nvcc`` at the
 first launch (``_build``); importing this package needs no CUDA toolkit.
 """
 from repro_torch.kernels.bucket_probe import (
-    bucket_probe_stream, bucket_probe_stream_plain, probe_filter_rows,
+    bucket_probe_stream, bucket_probe_stream_plain,
+    pack_bits, pack_bits_plain, probe_filter_rows,
     probe_filter_rows_delta, probe_filter_rows_delta_plain,
     probe_filter_rows_plain, probe_rows, probe_rows_plain)
 from repro_torch.kernels.coalesce_window import (coalesce_window_mask,
@@ -22,6 +23,7 @@ from repro_torch.kernels.ref import (NULL_WORD, bucket_probe_ref,
                                      segment_sum, unpack_words)
 
 __all__ = ["bucket_probe_stream", "bucket_probe_stream_plain",
+           "pack_bits", "pack_bits_plain",
            "probe_filter_rows", "probe_filter_rows_delta",
            "probe_filter_rows_delta_plain", "probe_filter_rows_plain",
            "probe_rows", "probe_rows_plain", "coalesce_window_mask",

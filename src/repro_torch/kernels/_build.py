@@ -32,12 +32,17 @@ SIGNATURES = {
     "bucket_probe": {
         # tk, tv, keys, bids, out, m, w, stream
         "probe_rows_launch": (_P, _P, _P, _P, _P, _I64, _I32, _P),
-        # tk, tv, tp, keys, bids, out, m, w, stream
-        "probe_filter_rows_launch": (_P, _P, _P, _P, _P, _P, _I64, _I32, _P),
-        # tk, tv, tp, keys, bids, dtk, dtw, dkeys, dbids, out, m, w, dw,
-        # stream
+        # plane, num_buckets, w, positive, slot_bits, bucket_bits, stream
+        "pack_bits_launch": (_P, _I64, _I32, _I32, _P, _P, _P),
+        # tk, tv, slot_bits, bucket_bits, keys, out, m, num_buckets, w,
+        # fib, stream
+        "probe_filter_rows_launch": (_P, _P, _P, _P, _P, _P, _I64, _I64,
+                                     _I32, _I32, _P),
+        # tk, tv, slot_bits, bucket_bits, keys, dtk, dtw, delta_bits, raw,
+        # out, m, num_buckets, w, fib, delta_buckets, dw, dfib, stream
         "probe_filter_rows_delta_launch": (_P, _P, _P, _P, _P, _P, _P, _P,
-                                           _P, _P, _I64, _I32, _I32, _P),
+                                           _P, _P, _I64, _I64, _I32, _I32,
+                                           _I64, _I32, _I32, _P),
         # tk, tv, keys, bids, out, m, w, stream
         "bucket_probe_stream_launch": (_P, _P, _P, _P, _P, _I64, _I32, _P),
     },

@@ -6,25 +6,59 @@
 // (_probe_filter_rows_kernel), probe_filter_rows_delta
 // (_probe_filter_rows_delta_kernel) and bucket_probe_stream (_stream_kernel).
 // The TPU versions of the first three take bucket rows that XLA gathered
-// into (m, W) planes in HBM; these take the (B, W) table planes and the
-// per-probe bucket ids and gather the row themselves, so no (m, W) plane is
-// ever written.
+// into (m, W) planes in HBM; these take the (B, W) table planes and gather
+// the row themselves, so no (m, W) plane is ever written.
 //
-// What bounds them: bytes.  Per probe a thread reads its key and bucket id
-// (8 bytes, coalesced), one W-lane key row (W=8: one 32-byte sector, two
-// int4 loads), and on a hit the value row (and predicate row); it writes one
-// word.  The row reads are random, so the kernels live on the memory
-// system's sector rate, not its streaming rate.  The design does the least
-// it can about that in a first version: one thread per probe, vector loads
-// of whole sectors, and value/predicate sectors loaded only for the int4
-// group that holds a match (a miss costs the key sector alone).
+// What bounds them: the rate of random reads (32-byte sectors from L2, and
+// the L1's line lookups), not the streaming rate.  Per probe a thread
+// reads its key (coalesced), then rows of the table at a random bucket,
+// and writes one word.
+//
+// probe_rows takes per-probe bucket ids; one thread per probe reads the
+// W-lane key row (W=8: one sector, two int4 loads) and, for the int4 group
+// that holds a match, the value row.
+//
+// probe_filter_rows and probe_filter_rows_delta hash the key themselves
+// (the table's bucket count and hash mode travel as scalars, no bucket-id
+// vector is read) and never read the int32 predicate plane: the wrapper
+// first packs it (pack_bits_launch, one thread per bucket) into two levels
+// of bits, one per slot (part: 16 MiB of plane become 512 KiB) and one per
+// bucket, set where some slot of the bucket passes (64 KiB).  A probe
+// reads its bucket's bit first: unset means no slot passes, so the result
+// is NULL_WORD whatever the keys hold, and nothing else of the table is
+// read.  Only where it is set are the bucket's lane bits and key row read,
+// together, and the value of the matching lane only where its lane bit is
+// set.  A selective predicate (Q2.1 passes 1/25 of parts: 14% of part's
+// buckets hold a passing slot) thus skips most key sectors and almost
+// every value sector: the random reads go from three 16 MiB planes to a
+// bit per bucket.
+//
+// Where the bucket bits (with the delta's, below) fit 96 KiB and W <= 16,
+// persistent blocks of 1024 threads, two per SM, copy them into shared
+// memory and walk the probes with a grid stride, so that the one random
+// read every probe makes is a shared-memory access: a warp's random 4-byte
+// reads through L1 touch up to 32 distinct lines, which L1 serves one
+// after another.  Larger tables, and W >= 32, take one thread per probe
+// and read the bits through L1.
 //
 // probe_filter_rows_delta adds the delta overlay of a live ingest buffer:
-// after the main probe the thread reads its raw key and delta bucket id
-// (coalesced) and that delta key row (DW=8: one sector; the buffer is small
-// next to the table and meant to stay in L2), and only on a delta hit the
-// folded word sector.  A delta hit overrides the main word unconditionally,
-// even with NULL_WORD (a tombstone, or a delta row the predicate rejects).
+// the thread also reads its raw key (coalesced), hashes it into the
+// delta's buckets, reads that bucket's occupancy bit (the key plane packed
+// the same way, != EMPTY_KEY, held beside the table's bits) and only where
+// it is set the delta key row (DW=8, the engine's width, is compiled as
+// such: one sector), loaded before the main probe and compared after it so
+// the two chains overlap, and the folded word only on a delta hit.  A
+// delta hit overrides the main word unconditionally, even with NULL_WORD
+// (a tombstone, or a delta row the predicate rejects).
+//
+// The streamed vectors (probe keys, raw keys, the output) are read and
+// written with the evict-first hint (__ldcs/__stcs), so that 720 MB of them
+// pass through L2 without pushing the table out.
+//
+// Designs measured against this one (tools/probe_designs.py, PERF.md):
+// the bit per slot alone, read beside the key row or before it; two lanes
+// per probe; two, four or eight probes per thread; the bucket bits read
+// through L1 only.
 //
 // bucket_probe_stream is the other probe design, kept so the two can be
 // compared on the card: the TPU kernel DMAs one bucket row per probe, and
@@ -36,7 +70,9 @@
 // Semantics (bit-identical to the plain versions): found = any lane equals
 // the key and the key is not EMPTY_KEY; the word is the int32 sum of the
 // matching lanes' values (at most one match per bucket), NULL_WORD (-2) on
-// a miss; probe_filter_rows also needs the summed predicate lanes > 0.
+// a miss; the filter kernels also need a matched lane whose predicate is
+// > 0, which on the 0/1 plane of ops.slot_predicate is the reference's
+// "summed predicate lanes > 0".
 #include <cstdint>
 #include <cuda_runtime.h>
 
@@ -46,6 +82,12 @@ constexpr int32_t kEmpty = -0x7FFFFFFF;
 constexpr int32_t kNull = -2;
 constexpr int kThreads = 256;
 constexpr unsigned kFull = 0xffffffffu;
+constexpr uint32_t kFib = 2654435769u;  // 2^32 / golden ratio
+// the filter kernels' persistent blocks: two of 1024 threads on each SM,
+// each holding at most kSmemBudget bytes of bucket bits (part's 524288
+// buckets and its delta's 65536: 73,728 bytes)
+constexpr int kSmemThreads = 1024;
+constexpr size_t kSmemBudget = 96 << 10;
 
 __device__ __forceinline__ uint32_t lane_sum(const int4 v, bool m0, bool m1,
                                              bool m2, bool m3) {
@@ -55,21 +97,51 @@ __device__ __forceinline__ uint32_t lane_sum(const int4 v, bool m0, bool m1,
          (m3 ? static_cast<uint32_t>(v.w) : 0u);
 }
 
+// The matching lanes of one int4 group as 4 bits.
+__device__ __forceinline__ uint32_t match4(const int4 v, int32_t k) {
+  return static_cast<uint32_t>(v.x == k) |
+         static_cast<uint32_t>(v.y == k) << 1 |
+         static_cast<uint32_t>(v.z == k) << 2 |
+         static_cast<uint32_t>(v.w == k) << 3;
+}
+
+// core/hash_table.py:hash_bucket on the card: the key's int32 bits as
+// uint32, then either the low bits (identity) or the top `bits` bits of the
+// wrapping product with kFib (Fibonacci), masked to the bucket count.
+struct Hash {
+  uint32_t mask;   // num_buckets - 1
+  int32_t shift;   // 32 - max(1, bit_length(num_buckets - 1))
+  int32_t fib;     // 0: identity, 1: Fibonacci
+};
+
+__device__ __forceinline__ uint32_t bucket_of(int32_t k, const Hash h) {
+  uint32_t u = static_cast<uint32_t>(k);
+  if (h.fib) u = (u * kFib) >> h.shift;
+  return u & h.mask;
+}
+
+Hash make_hash(int64_t num_buckets, int32_t fib) {
+  int bits = 1;
+  while ((int64_t{1} << bits) < num_buckets) ++bits;
+  return Hash{static_cast<uint32_t>(num_buckets - 1), 32 - bits, fib};
+}
+
 // The delta operands of probe_filter_rows_delta (unused otherwise).
 struct DeltaArgs {
   const int32_t* dtk;    // (DB, dw) delta key plane (raw keys)
   const int32_t* dtw;    // (DB, dw) predicate-folded delta words
-  const int32_t* dkeys;  // (m,) raw probe keys
-  const int32_t* dbids;  // (m,) delta bucket ids
+  const uint32_t* occ;   // (ceil(DB / 32),) bucket bits: some slot occupied
+  const int32_t* raw;    // (m,) raw probe keys
+  Hash h;                // the delta's hash
   int32_t dw;
 };
 
-template <int W, bool kFilter, bool kDelta>
+template <int W>
 __global__ void __launch_bounds__(kThreads)
 probe_kernel(const int32_t* __restrict__ tk, const int32_t* __restrict__ tv,
-             const int32_t* __restrict__ tp, const int32_t* __restrict__ keys,
+             const int32_t* __restrict__ keys,
              const int32_t* __restrict__ bids, int32_t* __restrict__ out,
-             int64_t m, const DeltaArgs d) {
+             int64_t m) {
   const int64_t i = static_cast<int64_t>(blockIdx.x) * kThreads + threadIdx.x;
   if (i >= m) return;
   const int32_t k = keys[i];
@@ -77,7 +149,7 @@ probe_kernel(const int32_t* __restrict__ tk, const int32_t* __restrict__ tv,
   const int4* rk = reinterpret_cast<const int4*>(tk + row);
   const int4* rv = reinterpret_cast<const int4*>(tv + row);
   bool any = false;
-  uint32_t word = 0, pred = 0;
+  uint32_t word = 0;
 #pragma unroll
   for (int j = 0; j < W / 4; ++j) {
     const int4 kk = __ldg(rk + j);
@@ -85,24 +157,165 @@ probe_kernel(const int32_t* __restrict__ tk, const int32_t* __restrict__ tv,
     if (m0 | m1 | m2 | m3) {
       any = true;
       word += lane_sum(__ldg(rv + j), m0, m1, m2, m3);
-      if (kFilter) {
-        const int4* rp = reinterpret_cast<const int4*>(tp + row);
-        pred += lane_sum(__ldg(rp + j), m0, m1, m2, m3);
-      }
     }
   }
-  const bool hit = any && k != kEmpty &&
-                   (!kFilter || static_cast<int32_t>(pred) > 0);
-  int32_t result = hit ? static_cast<int32_t>(word) : kNull;
+  out[i] = any && k != kEmpty ? static_cast<int32_t>(word) : kNull;
+}
+
+// The slot bits and bucket bits of a (B, W) plane, one thread per bucket:
+// slot bit b W + j (bit (b W + j) % 32 of word (b W + j) / 32) is the test
+// of plane[b][j] (kPositive: > 0, else != EMPTY_KEY), bucket bit b is "some
+// slot bit of bucket b is set".  Below 32 lanes a slot word holds 32 / W
+// buckets, put together by shuffles; every lane takes part in the ballot
+// and the shuffles (no early return).
+template <int W, bool kPositive>
+__global__ void __launch_bounds__(kThreads)
+pack_kernel(const int32_t* __restrict__ plane, int64_t num_buckets,
+            uint32_t* __restrict__ slot_bits,
+            uint32_t* __restrict__ bucket_bits) {
+  constexpr int NW = W > 32 ? W / 32 : 1;  // slot words per bucket
+  constexpr int LW = W < 32 ? W : 32;      // lanes per slot word
+  constexpr int G = 32 / LW;               // buckets per slot word
+  const int64_t b = static_cast<int64_t>(blockIdx.x) * kThreads + threadIdx.x;
+  const int lane = threadIdx.x & 31;
+  const bool active = b < num_buckets;
+  const int4* row = reinterpret_cast<const int4*>(plane + b * W);
+  constexpr int32_t kOff = kPositive ? 0 : kEmpty;  // tests false
+  uint32_t bits[NW];
+  uint32_t any = 0;
+#pragma unroll
+  for (int c = 0; c < NW; ++c) {
+    bits[c] = 0;
+#pragma unroll
+    for (int j = 0; j < LW / 4; ++j) {
+      const int4 v = active ? __ldcs(row + c * (LW / 4) + j)
+                            : make_int4(kOff, kOff, kOff, kOff);
+      const uint32_t t = kPositive
+          ? static_cast<uint32_t>(v.x > 0) |
+                static_cast<uint32_t>(v.y > 0) << 1 |
+                static_cast<uint32_t>(v.z > 0) << 2 |
+                static_cast<uint32_t>(v.w > 0) << 3
+          : static_cast<uint32_t>(v.x != kEmpty) |
+                static_cast<uint32_t>(v.y != kEmpty) << 1 |
+                static_cast<uint32_t>(v.z != kEmpty) << 2 |
+                static_cast<uint32_t>(v.w != kEmpty) << 3;
+      bits[c] |= t << (4 * j);
+    }
+    any |= bits[c];
+  }
+  const uint32_t bucket_word = __ballot_sync(kFull, any != 0);
+  if (lane == 0 && active) bucket_bits[b >> 5] = bucket_word;
+  if (W >= 32) {
+    if (active) {
+#pragma unroll
+      for (int c = 0; c < NW; ++c) slot_bits[b * NW + c] = bits[c];
+    }
+  } else {
+    uint32_t word = bits[0] << (LW * (lane % G));
+#pragma unroll
+    for (int off = 1; off < G; off <<= 1) {
+      word |= __shfl_xor_sync(kFull, word, off);
+    }
+    if (lane % G == 0 && active) slot_bits[(b * W) >> 5] = word;
+  }
+}
+
+// The operands of one filter launch.
+struct FilterArgs {
+  const int32_t* tk;    // (B, W) key plane
+  const int32_t* tv;    // (B, W) value plane
+  const uint32_t* pm;   // slot bits of the predicate plane
+  const uint32_t* pb;   // bucket bits of the predicate plane
+  const int32_t* keys;  // (m,) probe keys
+  int32_t* out;         // (m,) words
+  int64_t m;
+  Hash h;               // the table's hash
+  DeltaArgs d;          // with a delta only
+};
+
+template <bool kSmem>
+__device__ __forceinline__ uint32_t bit_word(const uint32_t* bits, uint32_t w) {
+  if constexpr (kSmem) {
+    return bits[w];
+  } else {
+    return __ldg(bits + w);
+  }
+}
+
+// The word of probe i.  DW: 0 no delta, 8 a delta 8 lanes wide (the
+// engine's), -1 a delta of the runtime width d.dw.  pb and occ (the
+// delta's bucket bits) point into shared memory when kSmem, else into
+// global memory.
+template <int W, int DW, bool kSmem>
+__device__ __forceinline__ int32_t filter_probe(int64_t i, const FilterArgs& a,
+                                                const uint32_t* pb,
+                                                const uint32_t* occ) {
+  constexpr int NW = W > 32 ? W / 32 : 1;       // mask words per bucket
+  constexpr int LW = W < 32 ? W : 32;           // lanes per mask word
+  constexpr uint32_t kLanes = LW == 32 ? kFull : (1u << LW) - 1u;
+  constexpr bool kDelta = DW != 0;
+  const DeltaArgs& d = a.d;
+  const int dw = DW > 0 ? DW : d.dw;
+  const int32_t k = __ldcs(a.keys + i);
+  const uint32_t b = bucket_of(k, a.h);
+  // the bucket bit first: a bucket with no passing slot gives NULL_WORD
+  const bool live = k != kEmpty && ((bit_word<kSmem>(pb, b >> 5) >> (b & 31)) & 1u);
+  // delta: its bucket's occupancy bit, then the key row, loaded here and
+  // compared after the main probe, so the two chains overlap
+  int32_t dk = kEmpty;
+  bool dlive = false;
+  int64_t drow = 0;
+  int4 d0 = make_int4(0, 0, 0, 0), d1 = d0;
   if (kDelta) {
-    const int32_t dk = d.dkeys[i];
-    const int64_t drow = static_cast<int64_t>(d.dbids[i]) * d.dw;
+    dk = __ldcs(d.raw + i);
+    const uint32_t db = bucket_of(dk, d.h);
+    dlive = dk != kEmpty && ((bit_word<kSmem>(occ, db >> 5) >> (db & 31)) & 1u);
+    drow = static_cast<int64_t>(db) * dw;
+    if (dlive) {
+      const int4* drk = reinterpret_cast<const int4*>(d.dtk + drow);
+      d0 = __ldg(drk);
+      if (dw >= 8) d1 = __ldg(drk + 1);
+    }
+  }
+  int32_t result = kNull;
+  if (live) {
+    // the bucket's lane bits and key row together, the value only for a
+    // matched lane whose bit is set
+    const int64_t slot = static_cast<int64_t>(b) * W;
+    const int4* rk = reinterpret_cast<const int4*>(a.tk + slot);
+    uint32_t pass[NW], match[NW];
+    uint32_t hit = 0;
+#pragma unroll
+    for (int c = 0; c < NW; ++c) {
+      const int64_t s = slot + 32 * c;
+      pass[c] = (__ldg(a.pm + (s >> 5)) >> (s & 31)) & kLanes;
+      match[c] = 0;
+#pragma unroll
+      for (int j = 0; j < LW / 4; ++j) {
+        match[c] |= match4(__ldg(rk + c * (LW / 4) + j), k) << (4 * j);
+      }
+      hit |= match[c] & pass[c];
+    }
+    if (hit != 0) {
+      uint32_t word = 0;
+#pragma unroll
+      for (int c = 0; c < NW; ++c) {
+        for (uint32_t mm = match[c]; mm != 0; mm &= mm - 1) {
+          word += static_cast<uint32_t>(
+              __ldg(a.tv + slot + 32 * c + (__ffs(mm) - 1)));
+        }
+      }
+      result = static_cast<int32_t>(word);
+    }
+  }
+  if (kDelta && dlive) {
     const int4* drk = reinterpret_cast<const int4*>(d.dtk + drow);
     const int4* drw = reinterpret_cast<const int4*>(d.dtw + drow);
     bool dany = false;
     uint32_t dword = 0;
-    for (int j = 0; j < d.dw / 4; ++j) {
-      const int4 kk = __ldg(drk + j);
+#pragma unroll 2
+    for (int j = 0; j < dw / 4; ++j) {
+      const int4 kk = j == 0 ? d0 : j == 1 ? d1 : __ldg(drk + j);
       const bool m0 = kk.x == dk, m1 = kk.y == dk, m2 = kk.z == dk,
                  m3 = kk.w == dk;
       if (m0 | m1 | m2 | m3) {
@@ -110,9 +323,41 @@ probe_kernel(const int32_t* __restrict__ tk, const int32_t* __restrict__ tv,
         dword += lane_sum(__ldg(drw + j), m0, m1, m2, m3);
       }
     }
-    if (dany && dk != kEmpty) result = static_cast<int32_t>(dword);
+    if (dany) result = static_cast<int32_t>(dword);
   }
-  out[i] = result;
+  return result;
+}
+
+// One thread per probe, the bits read through L1: tables whose bucket bits
+// do not fit the shared-memory budget, and W >= 32.
+template <int W, int DW>
+__global__ void __launch_bounds__(kThreads) filter_kernel(const FilterArgs a) {
+  const int64_t i = static_cast<int64_t>(blockIdx.x) * kThreads + threadIdx.x;
+  if (i >= a.m) return;
+  __stcs(a.out + i, filter_probe<W, DW, false>(i, a, a.pb, a.d.occ));
+}
+
+// Persistent blocks, two per SM: each copies the bucket bits (and the
+// delta's) into shared memory once, then walks the probes with a grid
+// stride.  A random bit test is then a shared-memory access, not a
+// 32-line gather through L1.
+template <int W, int DW>
+__global__ void __launch_bounds__(kSmemThreads, 2)
+filter_smem_kernel(const FilterArgs a, int32_t nbw, int32_t dnbw) {
+  extern __shared__ uint32_t sbits[];
+  for (int w = threadIdx.x; w < nbw; w += kSmemThreads) {
+    sbits[w] = __ldg(a.pb + w);
+  }
+  for (int w = threadIdx.x; w < dnbw; w += kSmemThreads) {
+    sbits[nbw + w] = __ldg(a.d.occ + w);
+  }
+  __syncthreads();
+  const int64_t stride = static_cast<int64_t>(gridDim.x) * kSmemThreads;
+  for (int64_t i = static_cast<int64_t>(blockIdx.x) * kSmemThreads +
+                   threadIdx.x;
+       i < a.m; i += stride) {
+    __stcs(a.out + i, filter_probe<W, DW, true>(i, a, sbits, sbits + nbw));
+  }
 }
 
 template <int W>
@@ -154,26 +399,74 @@ stream_kernel(const int32_t* __restrict__ tk, const int32_t* __restrict__ tv,
   }
 }
 
-template <bool kFilter, bool kDelta>
-int launch(const void* tk, const void* tv, const void* tp, const void* keys,
-           const void* bids, void* out, int64_t m, int32_t w,
-           const DeltaArgs& d, void* stream) {
-  if (m == 0) return cudaSuccess;
-  const unsigned grid = static_cast<unsigned>((m + kThreads - 1) / kThreads);
+unsigned grid_for(int64_t threads) {
+  return static_cast<unsigned>((threads + kThreads - 1) / kThreads);
+}
+
+template <int W, int DW>
+int launch_filter_w(const FilterArgs& a, int64_t num_buckets,
+                    int64_t delta_buckets, cudaStream_t s) {
+  if constexpr (W <= 16) {
+    const int nbw = static_cast<int>((num_buckets + 31) / 32);
+    const int dnbw = DW != 0 ? static_cast<int>((delta_buckets + 31) / 32) : 0;
+    const size_t bytes = sizeof(uint32_t) * (nbw + dnbw);
+    if (bytes <= kSmemBudget) {
+      const auto kernel = filter_smem_kernel<W, DW>;
+      int dev = 0, sms = 0, per_sm = 0;
+      int status = cudaFuncSetAttribute(
+          kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+          static_cast<int>(bytes));
+      if (status == cudaSuccess) status = cudaGetDevice(&dev);
+      if (status == cudaSuccess) {
+        status = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount,
+                                        dev);
+      }
+      if (status == cudaSuccess) {
+        status = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+            &per_sm, kernel, kSmemThreads, bytes);
+      }
+      if (status != cudaSuccess) return status;
+      if (per_sm > 0) {
+        const int64_t need = (a.m + kSmemThreads - 1) / kSmemThreads;
+        const int64_t grid = need < int64_t{sms} * per_sm
+                                 ? need : int64_t{sms} * per_sm;
+        kernel<<<static_cast<unsigned>(grid), kSmemThreads, bytes, s>>>(
+            a, nbw, dnbw);
+        return cudaGetLastError();
+      }
+    }
+  }
+  filter_kernel<W, DW><<<grid_for(a.m), kThreads, 0, s>>>(a);
+  return cudaGetLastError();
+}
+
+template <int DW>
+int launch_filter(const FilterArgs& a, int64_t num_buckets,
+                  int64_t delta_buckets, int32_t w, void* stream) {
+  if (a.m == 0) return cudaSuccess;
   const auto s = static_cast<cudaStream_t>(stream);
-  const auto* k = static_cast<const int32_t*>(tk);
-  const auto* v = static_cast<const int32_t*>(tv);
-  const auto* p = static_cast<const int32_t*>(tp);
-  const auto* q = static_cast<const int32_t*>(keys);
-  const auto* b = static_cast<const int32_t*>(bids);
-  auto* o = static_cast<int32_t*>(out);
   switch (w) {
-    case 4: probe_kernel<4, kFilter, kDelta><<<grid, kThreads, 0, s>>>(k, v, p, q, b, o, m, d); break;
-    case 8: probe_kernel<8, kFilter, kDelta><<<grid, kThreads, 0, s>>>(k, v, p, q, b, o, m, d); break;
-    case 16: probe_kernel<16, kFilter, kDelta><<<grid, kThreads, 0, s>>>(k, v, p, q, b, o, m, d); break;
-    case 32: probe_kernel<32, kFilter, kDelta><<<grid, kThreads, 0, s>>>(k, v, p, q, b, o, m, d); break;
-    case 64: probe_kernel<64, kFilter, kDelta><<<grid, kThreads, 0, s>>>(k, v, p, q, b, o, m, d); break;
-    case 128: probe_kernel<128, kFilter, kDelta><<<grid, kThreads, 0, s>>>(k, v, p, q, b, o, m, d); break;
+    case 4: return launch_filter_w<4, DW>(a, num_buckets, delta_buckets, s);
+    case 8: return launch_filter_w<8, DW>(a, num_buckets, delta_buckets, s);
+    case 16: return launch_filter_w<16, DW>(a, num_buckets, delta_buckets, s);
+    case 32: return launch_filter_w<32, DW>(a, num_buckets, delta_buckets, s);
+    case 64: return launch_filter_w<64, DW>(a, num_buckets, delta_buckets, s);
+    case 128: return launch_filter_w<128, DW>(a, num_buckets, delta_buckets, s);
+    default: return cudaErrorInvalidValue;
+  }
+}
+
+template <bool kPositive>
+int launch_pack(const int32_t* p, int64_t nb, int32_t w, uint32_t* sb,
+                uint32_t* bb, cudaStream_t s) {
+  const unsigned g = grid_for(nb);
+  switch (w) {
+    case 4: pack_kernel<4, kPositive><<<g, kThreads, 0, s>>>(p, nb, sb, bb); break;
+    case 8: pack_kernel<8, kPositive><<<g, kThreads, 0, s>>>(p, nb, sb, bb); break;
+    case 16: pack_kernel<16, kPositive><<<g, kThreads, 0, s>>>(p, nb, sb, bb); break;
+    case 32: pack_kernel<32, kPositive><<<g, kThreads, 0, s>>>(p, nb, sb, bb); break;
+    case 64: pack_kernel<64, kPositive><<<g, kThreads, 0, s>>>(p, nb, sb, bb); break;
+    case 128: pack_kernel<128, kPositive><<<g, kThreads, 0, s>>>(p, nb, sb, bb); break;
     default: return cudaErrorInvalidValue;
   }
   return cudaGetLastError();
@@ -183,10 +476,7 @@ template <int W>
 int launch_stream(const int32_t* k, const int32_t* v, const int32_t* q,
                   const int32_t* b, int32_t* o, int64_t m, cudaStream_t s) {
   constexpr int G = W < 32 ? W : 32;
-  const int64_t threads = m * G;
-  const unsigned grid =
-      static_cast<unsigned>((threads + kThreads - 1) / kThreads);
-  stream_kernel<W><<<grid, kThreads, 0, s>>>(k, v, q, b, o, m);
+  stream_kernel<W><<<grid_for(m * G), kThreads, 0, s>>>(k, v, q, b, o, m);
   return cudaGetLastError();
 }
 
@@ -195,29 +485,82 @@ int launch_stream(const int32_t* k, const int32_t* v, const int32_t* q,
 extern "C" int probe_rows_launch(const void* tk, const void* tv,
                                  const void* keys, const void* bids, void* out,
                                  int64_t m, int32_t w, void* stream) {
-  return launch<false, false>(tk, tv, nullptr, keys, bids, out, m, w,
-                              DeltaArgs{}, stream);
+  if (m == 0) return cudaSuccess;
+  const unsigned grid = grid_for(m);
+  const auto s = static_cast<cudaStream_t>(stream);
+  const auto* k = static_cast<const int32_t*>(tk);
+  const auto* v = static_cast<const int32_t*>(tv);
+  const auto* q = static_cast<const int32_t*>(keys);
+  const auto* b = static_cast<const int32_t*>(bids);
+  auto* o = static_cast<int32_t*>(out);
+  switch (w) {
+    case 4: probe_kernel<4><<<grid, kThreads, 0, s>>>(k, v, q, b, o, m); break;
+    case 8: probe_kernel<8><<<grid, kThreads, 0, s>>>(k, v, q, b, o, m); break;
+    case 16: probe_kernel<16><<<grid, kThreads, 0, s>>>(k, v, q, b, o, m); break;
+    case 32: probe_kernel<32><<<grid, kThreads, 0, s>>>(k, v, q, b, o, m); break;
+    case 64: probe_kernel<64><<<grid, kThreads, 0, s>>>(k, v, q, b, o, m); break;
+    case 128: probe_kernel<128><<<grid, kThreads, 0, s>>>(k, v, q, b, o, m); break;
+    default: return cudaErrorInvalidValue;
+  }
+  return cudaGetLastError();
 }
 
+// A (B, W) int32 plane -> its slot bits (max(1, B W / 32) words) and its
+// bucket bits (ceil(B / 32) words).  positive: 1 tests > 0 (a predicate
+// plane), 0 tests != EMPTY_KEY (a key plane's occupied slots).
+extern "C" int pack_bits_launch(const void* plane, int64_t num_buckets,
+                                int32_t w, int32_t positive, void* slot_bits,
+                                void* bucket_bits, void* stream) {
+  if (num_buckets == 0) return cudaSuccess;
+  const auto* p = static_cast<const int32_t*>(plane);
+  auto* sb = static_cast<uint32_t*>(slot_bits);
+  auto* bb = static_cast<uint32_t*>(bucket_bits);
+  const auto s = static_cast<cudaStream_t>(stream);
+  return positive ? launch_pack<true>(p, num_buckets, w, sb, bb, s)
+                  : launch_pack<false>(p, num_buckets, w, sb, bb, s);
+}
+
+// slot_bits, bucket_bits: pack_bits_launch's words for the table's
+// predicate plane.  fib: the table's hash mode, 0 identity, 1 Fibonacci.
 extern "C" int probe_filter_rows_launch(const void* tk, const void* tv,
-                                        const void* tp, const void* keys,
-                                        const void* bids, void* out, int64_t m,
-                                        int32_t w, void* stream) {
-  return launch<true, false>(tk, tv, tp, keys, bids, out, m, w, DeltaArgs{},
-                             stream);
+                                        const void* slot_bits,
+                                        const void* bucket_bits,
+                                        const void* keys, void* out, int64_t m,
+                                        int64_t num_buckets, int32_t w,
+                                        int32_t fib, void* stream) {
+  const FilterArgs a{static_cast<const int32_t*>(tk),
+                     static_cast<const int32_t*>(tv),
+                     static_cast<const uint32_t*>(slot_bits),
+                     static_cast<const uint32_t*>(bucket_bits),
+                     static_cast<const int32_t*>(keys),
+                     static_cast<int32_t*>(out), m,
+                     make_hash(num_buckets, fib), DeltaArgs{}};
+  return launch_filter<0>(a, num_buckets, 0, w, stream);
 }
 
+// delta_bits: pack_bits_launch's bucket words for the delta's key plane
+// (positive = 0).
 extern "C" int probe_filter_rows_delta_launch(
-    const void* tk, const void* tv, const void* tp, const void* keys,
-    const void* bids, const void* dtk, const void* dtw, const void* dkeys,
-    const void* dbids, void* out, int64_t m, int32_t w, int32_t dw,
-    void* stream) {
+    const void* tk, const void* tv, const void* slot_bits,
+    const void* bucket_bits, const void* keys, const void* dtk,
+    const void* dtw, const void* delta_bits, const void* raw, void* out,
+    int64_t m, int64_t num_buckets, int32_t w, int32_t fib,
+    int64_t delta_buckets, int32_t dw, int32_t dfib, void* stream) {
   if (dw < 4 || dw > 128 || (dw & (dw - 1)) != 0) return cudaErrorInvalidValue;
   const DeltaArgs d{static_cast<const int32_t*>(dtk),
                     static_cast<const int32_t*>(dtw),
-                    static_cast<const int32_t*>(dkeys),
-                    static_cast<const int32_t*>(dbids), dw};
-  return launch<true, true>(tk, tv, tp, keys, bids, out, m, w, d, stream);
+                    static_cast<const uint32_t*>(delta_bits),
+                    static_cast<const int32_t*>(raw),
+                    make_hash(delta_buckets, dfib), dw};
+  const FilterArgs a{static_cast<const int32_t*>(tk),
+                     static_cast<const int32_t*>(tv),
+                     static_cast<const uint32_t*>(slot_bits),
+                     static_cast<const uint32_t*>(bucket_bits),
+                     static_cast<const int32_t*>(keys),
+                     static_cast<int32_t*>(out), m,
+                     make_hash(num_buckets, fib), d};
+  return dw == 8 ? launch_filter<8>(a, num_buckets, delta_buckets, w, stream)
+                 : launch_filter<-1>(a, num_buckets, delta_buckets, w, stream);
 }
 
 extern "C" int bucket_probe_stream_launch(const void* tk, const void* tv,

@@ -1,15 +1,18 @@
 """Probe entry points over the CUDA kernels, and the kernel registry.
 
 ``probe_table`` / ``probe_table_filtered`` / ``probe_table_filtered_delta``
-are what ``engine/join.py`` calls on the ``"cuda"`` kernel: hash the probe
-keys (a plain elementwise op, as in the JAX package) and hand the table
-planes and bucket ids to the kernel, which gathers the bucket rows itself.
+are what ``engine/join.py`` calls on the ``"cuda"`` kernel.  ``probe_table``
+hashes the probe keys (a plain elementwise op, as in the JAX package) and
+hands the table planes and bucket ids to the kernel, which gathers the
+bucket rows itself; the two filtered entries hand over the table's hash
+mode, and their kernels hash each key themselves.
 
 ``KERNEL_REGISTRY`` lists every hand-written kernel with its plain version,
 the TPU kernel it replaces and deterministic operand cases.  The cases are
 the JAX registry's (``repro/kernels/ops.py``), drawn from the same numpy
 seeds and built with the port's own ``core/delta.py``, in the port's
-calling convention: table planes plus bucket ids instead of gathered rows.
+calling convention: table planes plus bucket ids (or, for the filter
+kernels, the hash mode) instead of gathered rows.
 ``coalesce_window_mask`` adds a Zipf stream to the reference's case.
 """
 from __future__ import annotations
@@ -72,12 +75,12 @@ def slot_predicate(table: JSPIMTable, dim_mask: torch.Tensor) -> torch.Tensor:
 
 def probe_table_filtered(table: JSPIMTable, probe_keys: torch.Tensor,
                          slot_pred: torch.Tensor) -> ProbeResult:
-    """Fused associative search + dimension filter (``probe_filter_rows``):
-    ``found`` is True only where the match also passes the predicate."""
-    keys = probe_keys.to(torch.int32)
-    bids = hash_bucket(keys, table.num_buckets, table.hash_mode)
-    return unpack_words(probe_filter_rows(table.keys, table.values,
-                                          slot_pred, keys, bids))
+    """Fused associative search + dimension filter (``probe_filter_rows``,
+    which hashes the keys itself): ``found`` is True only where the match
+    also passes the predicate."""
+    return unpack_words(probe_filter_rows(
+        table.keys, table.values, slot_pred, probe_keys.to(torch.int32),
+        table.hash_mode))
 
 
 def delta_slot_words(delta: DeltaTable, dim_mask: torch.Tensor
@@ -105,13 +108,10 @@ def probe_table_filtered_delta(table: JSPIMTable, probe_keys: torch.Tensor,
     """``probe_table_filtered`` on an index with a live delta
     (``probe_filter_rows_delta``): ``raw_keys`` probe the delta's key
     plane, and ``delta_words`` comes from ``delta_slot_words``."""
-    keys = probe_keys.to(torch.int32)
-    bids = hash_bucket(keys, table.num_buckets, table.hash_mode)
-    raw = raw_keys.to(torch.int32)
-    dbids = hash_bucket(raw, delta.num_buckets, delta.hash_mode)
     return unpack_words(probe_filter_rows_delta(
-        table.keys, table.values, slot_pred, keys, bids, delta.keys,
-        delta_words, raw, dbids))
+        table.keys, table.values, slot_pred, probe_keys.to(torch.int32),
+        table.hash_mode, delta.keys, delta_words, raw_keys.to(torch.int32),
+        delta.hash_mode))
 
 
 # --------------------------------------------------------------------------
@@ -181,10 +181,11 @@ def _stream_cases(device="cpu"):
 
 
 def _filter_cases(device="cpu"):
-    table, pk, bids = _probe_cases(device)
+    table, pk, _ = _probe_cases(device)
     mask = torch.as_tensor(np.arange(64) % 3 == 0, device=device)
     pred = slot_predicate(table, mask)
-    return [("pred_mix", (table.keys, table.values, pred, pk, bids), {})]
+    return [("pred_mix", (table.keys, table.values, pred, pk,
+                          table.hash_mode), {})]
 
 
 def _delta_states(device):
@@ -199,16 +200,16 @@ def _delta_states(device):
 
 
 def _filter_delta_cases(device="cpu"):
-    table, pk, bids = _probe_cases(device)
+    table, pk, _ = _probe_cases(device)
     mask = torch.as_tensor(np.arange(64) % 3 == 0, device=device)
     pred = slot_predicate(table, mask)
     raw = pk  # the case table holds raw keys: raw key == probe key
     cases = []
     for state, delta in _delta_states(device):
         dwords = delta_slot_words(delta, mask)
-        dbids = hash_bucket(raw, delta.num_buckets, delta.hash_mode)
-        cases.append((state, (table.keys, table.values, pred, pk, bids,
-                              delta.keys, dwords, raw, dbids), {}))
+        cases.append((state, (table.keys, table.values, pred, pk,
+                              table.hash_mode, delta.keys, dwords, raw,
+                              delta.hash_mode), {}))
     return cases
 
 

@@ -24,6 +24,7 @@ from repro_torch.kernels import _build
 from repro_torch.kernels import ops as tops
 from repro_torch.kernels import ref as tref
 from repro_torch.kernels.bucket_probe import (bucket_probe_stream,
+                                              pack_bits,
                                               probe_filter_rows,
                                               probe_filter_rows_delta,
                                               probe_rows)
@@ -73,10 +74,15 @@ def test_registry_case_matches_pallas_interpret(name, i):
     elif name in ("bucket_probe_stream", "coalesce_window_mask"):
         _eq(pargs, jargs, "operands")  # the same operands in both
     elif name == "probe_filter_rows_delta":
-        tk, tv, tp, pk, bids, dtk, dtw, raw, dbids = pargs
-        b, db = bids.long(), dbids.long()
+        tk, tv, tp, pk, mode, dtk, dtw, raw, dmode = pargs
+        b = tht.hash_bucket(pk, tk.shape[0], mode).long()
+        db = tht.hash_bucket(raw, dtk.shape[0], dmode).long()
         _eq((pk, tk[b], tv[b], tp[b], raw, dtk[db], dtw[db]), jargs,
             "gathered rows")
+    elif name == "probe_filter_rows":
+        tk, tv, tp, pk, mode = pargs
+        b = tht.hash_bucket(pk, tk.shape[0], mode).long()
+        _eq((pk, tk[b], tv[b], tp[b]), jargs, "gathered rows")
     else:
         b = pargs[-1].long()
         _eq(pargs[-2], jargs[0], "probe keys")
@@ -102,15 +108,16 @@ def test_coalesce_window_zipf_case_matches_pallas_interpret():
     assert int(op.fn(keys, **kw).sum()) > 0
 
 
-def _sweep_table(width, n_keys=200, seed=0):
+def _sweep_table(width, n_keys=200, seed=0, hash_mode=tht.HASH_IDENTITY):
     rng = np.random.default_rng(seed)
     keys = rng.choice(n_keys * 4, n_keys, replace=False).astype(np.int32)
     vals = rng.integers(0, 1 << 20, n_keys).astype(np.int32)
     nb = tht.suggest_num_buckets(n_keys, width)
     return (tht.build_table(_t(keys), _t(vals), num_buckets=nb,
-                            bucket_width=width),
+                            bucket_width=width, hash_mode=hash_mode),
             jht.build_table(jnp.asarray(keys), jnp.asarray(vals),
-                            num_buckets=nb, bucket_width=width))
+                            num_buckets=nb, bucket_width=width,
+                            hash_mode=hash_mode))
 
 
 def _sweep_probes(m, seed):
@@ -120,12 +127,28 @@ def _sweep_probes(m, seed):
     return pk
 
 
-@pytest.mark.parametrize("width", [8, 16])
-@pytest.mark.parametrize("m", [1, 7, 300])
-def test_probe_kernels_shape_sweep(width, m):
-    """m not a multiple of the Pallas block (64 here)."""
-    tt, jt = _sweep_table(width)
+HASH_MODES = [tht.HASH_IDENTITY, tht.HASH_FIBONACCI]
+
+
+def _sweep_cases(shapes, modes):
+    """pytest params over shapes x hash modes; the first mode's cases keep
+    the ids the shapes alone had (``m-width...``), the others add the
+    mode's name."""
+    return [pytest.param(*shape, *mode, id="-".join(
+        [str(shape[-1]), *map(str, shape[:-1])] + ([name] if name else [])))
+            for name, mode in modes for shape in shapes]
+
+
+@pytest.mark.parametrize("width,m,hash_mode", _sweep_cases(
+    [(w, m) for w in (8, 16) for m in (1, 7, 300)],
+    [("", (tht.HASH_IDENTITY,)), ("fibonacci", (tht.HASH_FIBONACCI,))]))
+def test_probe_kernels_shape_sweep(width, m, hash_mode):
+    """m not a multiple of the Pallas block (64 here); negative probe keys
+    and EMPTY_KEY among them.  ``probe_filter_rows`` hashes the keys
+    itself; the Pallas kernel gets rows gathered by the reference's hash."""
+    tt, jt = _sweep_table(width, hash_mode=hash_mode)
     pk = _sweep_probes(m, m)
+    pk[3::13] = -pk[3::13] - 1
     bids = tht.hash_bucket(_t(pk), tt.num_buckets, tt.hash_mode)
     jb = jht.hash_bucket(jnp.asarray(pk), jt.num_buckets, jt.hash_mode)
     got = probe_rows(tt.keys, tt.values, _t(pk), bids)
@@ -135,7 +158,7 @@ def test_probe_kernels_shape_sweep(width, m):
     mask = torch.as_tensor(np.arange(200) % 4 != 1)
     pred = tops.slot_predicate(tt, mask)
     _eq(pred, jops.slot_predicate(jt, jnp.asarray(mask.numpy())))
-    got = probe_filter_rows(tt.keys, tt.values, pred, _t(pk), bids)
+    got = probe_filter_rows(tt.keys, tt.values, pred, _t(pk), hash_mode)
     want = jbp.probe_filter_rows(jnp.asarray(pk), jt.keys[jb], jt.values[jb],
                                  jnp.asarray(pred.numpy())[jb], block_pb=64,
                                  interpret=True)
@@ -157,15 +180,21 @@ def test_bucket_probe_stream_shape_sweep(width, m):
     _eq(got, probe_rows(tt.keys, tt.values, _t(pk), bids))
 
 
-@pytest.mark.parametrize("width,dwidth", [(8, 8), (16, 4)])
-@pytest.mark.parametrize("m", [1, 7, 300])
-def test_probe_filter_rows_delta_shape_sweep(width, dwidth, m):
+@pytest.mark.parametrize("width,dwidth,m,hash_mode,delta_hash_mode",
+                         _sweep_cases(
+    [(w, dw, m) for w, dw in ((8, 8), (16, 4)) for m in (1, 7, 300)],
+    [("", (tht.HASH_IDENTITY, tht.HASH_FIBONACCI)),
+     ("swapped", (tht.HASH_FIBONACCI, tht.HASH_IDENTITY))]))
+def test_probe_filter_rows_delta_shape_sweep(width, dwidth, m, hash_mode,
+                                             delta_hash_mode):
     """A live delta with upserts (some past the dimension), tombstones and
-    new keys, built by each package's own delta ops."""
-    tt, jt = _sweep_table(width)
+    new keys, built by each package's own delta ops.  The engine's pairing
+    (dictionary codes by identity, raw keys by Fibonacci) and the other
+    way round; negative probe keys and EMPTY_KEY among the probes."""
+    tt, jt = _sweep_table(width, hash_mode=hash_mode)
     rng = np.random.default_rng(m + width)
-    td = tdelta.empty_delta(8, dwidth)
-    jd = jdelta.empty_delta(8, dwidth)
+    td = tdelta.empty_delta(8, dwidth, hash_mode=delta_hash_mode)
+    jd = jdelta.empty_delta(8, dwidth, hash_mode=delta_hash_mode)
     ups = rng.integers(0, 900, 12).astype(np.int32)
     pays = rng.integers(0, 230, 12).astype(np.int32)
     dels = rng.integers(0, 900, 5).astype(np.int32)
@@ -175,15 +204,15 @@ def test_probe_filter_rows_delta_shape_sweep(width, dwidth, m):
                                                  jnp.asarray(pays)),
                              jnp.asarray(dels))
     pk = _sweep_probes(m, m)
+    pk[3::13] = -pk[3::13] - 1
     pk[: min(m, 12)] = ups[: min(m, 12)]
     mask = np.arange(200) % 4 != 1
     pred = tops.slot_predicate(tt, torch.as_tensor(mask))
     dwords = tops.delta_slot_words(td, torch.as_tensor(mask))
     _eq(dwords, jops.delta_slot_words(jd, jnp.asarray(mask)))
-    bids = tht.hash_bucket(_t(pk), tt.num_buckets, tt.hash_mode)
-    dbids = tht.hash_bucket(_t(pk), td.num_buckets, td.hash_mode)
-    got = probe_filter_rows_delta(tt.keys, tt.values, pred, _t(pk), bids,
-                                  td.keys, dwords, _t(pk), dbids)
+    got = probe_filter_rows_delta(tt.keys, tt.values, pred, _t(pk),
+                                  hash_mode, td.keys, dwords, _t(pk),
+                                  delta_hash_mode)
     jb = np.asarray(jht.hash_bucket(jnp.asarray(pk), jt.num_buckets,
                                     jt.hash_mode))
     jdb = np.asarray(jht.hash_bucket(jnp.asarray(pk), jd.num_buckets,
@@ -193,6 +222,81 @@ def test_probe_filter_rows_delta_shape_sweep(width, dwidth, m):
         jnp.asarray(pred.numpy())[jb], jnp.asarray(pk), jd.keys[jdb],
         jnp.asarray(dwords.numpy())[jdb], block_pb=64, interpret=True)
     _eq(got, want)
+
+
+def _bits(words, n):
+    """The first ``n`` bits of int32 words, as a flat 0/1 array, and the
+    rest (which must be 0)."""
+    bits = ((words.long()[:, None] >> torch.arange(32)) & 1).reshape(-1)
+    return bits[:n].numpy(), bits[n:].numpy()
+
+
+@pytest.mark.parametrize("width", [4, 8, 16, 32, 64, 128])
+def test_pack_bits_equal_the_slot_plane(width):
+    """Bit ``b W + j`` of the packed slot words is slot ``(b, j)`` of
+    ``slot_predicate``'s plane, duplication-group slots (which keep 1)
+    included, and bucket bit ``b`` is "some slot of bucket ``b`` passes";
+    the same for the key plane's occupied slots.  A table of fewer than 32
+    slots packs into one word."""
+    rng = np.random.default_rng(width)
+    keys = rng.integers(0, 300, 400).astype(np.int32)  # duplicates: groups
+    table = tht.build_table(_t(keys), _t(np.arange(400)),
+                            num_buckets=tht.suggest_num_buckets(300, width),
+                            bucket_width=width)
+    assert int(table.group_count.gt(1).sum()) > 0
+    pred = tops.slot_predicate(table, torch.as_tensor(rng.random(400) < 0.3))
+    is_dup = (table.values & 1).bool() & (table.keys != tht.EMPTY_KEY)
+    assert bool(pred[is_dup].eq(1).all()) and int(is_dup.sum()) > 0
+    cases = [(pred, "positive", pred.bool()),
+             (table.keys, "occupied", table.keys != tht.EMPTY_KEY)]
+    cases += [(p[:1, :4].contiguous(), t, f[:1, :4]) for p, t, f in cases]
+    for plane, test, flags in cases:
+        slots, buckets = pack_bits(plane, test)
+        nb, n = plane.shape[0], plane.numel()
+        assert slots.dtype == buckets.dtype == torch.int32
+        assert slots.shape == (max(1, n // 32),)
+        assert buckets.shape == ((nb + 31) // 32,)
+        head, tail = _bits(slots, n)
+        _eq(_t(head), flags.reshape(-1).int().numpy(), test)
+        assert not tail.any()
+        head, tail = _bits(buckets, nb)
+        _eq(_t(head), flags.any(dim=1).int().numpy(), test)
+        assert not tail.any()
+        assert head.sum() > 0 or nb == 1
+
+
+def _kernel_hash(keys, num_buckets, mode):
+    """``bucket_of`` in ``csrc/bucket_probe.cu``, line for line: the key's
+    int32 bits times 2654435769 mod 2^32 (a wrapping int32 product has the
+    uint32 product's bits), shifted down to the top ``max(1, bit_length(
+    num_buckets - 1))`` bits, masked; or the key masked.  The mask also
+    drops the sign bits an arithmetic shift brings in."""
+    k = keys.to(torch.int32)
+    if mode == tht.HASH_FIBONACCI:
+        bits = 1
+        while (1 << bits) < num_buckets:  # make_hash
+            bits += 1
+        k = (k * (2654435769 - (1 << 32))) >> (32 - bits)
+    return k & (num_buckets - 1)
+
+
+@pytest.mark.parametrize("num_buckets", [1, 2, 8, 1 << 19, 1 << 30])
+def test_kernel_hash_equals_hash_bucket(num_buckets):
+    """The filter kernels' in-kernel hash, written in PyTorch, equals both
+    packages' ``hash_bucket`` (what the plain versions use): one bucket,
+    negative keys (their int32 bits taken as uint32), EMPTY_KEY and the
+    int32 ends."""
+    rng = np.random.default_rng(num_buckets)
+    keys = np.concatenate([
+        [0, 1, -1, -2, tht.EMPTY_KEY, -2**31, 2**31 - 1, 2**30],
+        rng.integers(-2**31, 2**31, 500)]).astype(np.int32)
+    for mode in HASH_MODES:
+        got = _kernel_hash(_t(keys), num_buckets, mode)
+        want = tht.hash_bucket(_t(keys), num_buckets, mode)
+        assert got.dtype == torch.int32
+        _eq(got, want.numpy(), mode)
+        _eq(got, jht.hash_bucket(jnp.asarray(keys), num_buckets, mode), mode)
+        assert int(got.min()) >= 0 and int(got.max()) < num_buckets
 
 
 def _fused_operands(n_dims, width, m, num_segments, seed):
@@ -277,6 +381,25 @@ def test_wrappers_reject_bad_operands(bad):
         return
     with pytest.raises(ValueError):
         probe_rows(keys, vals, pk, bids)
+
+
+_C_TYPES = {"const void*": _build._P, "void*": _build._P,
+            "int64_t": _build._I64, "int32_t": _build._I32}
+
+
+@pytest.mark.parametrize("lib", sorted(_build.SIGNATURES))
+def test_ctypes_signatures_match_the_sources(lib):
+    """Every ``extern "C"`` launcher of ``csrc/<lib>.cu`` is declared in
+    ``_build.SIGNATURES`` with its parameters' ctypes, in order: a pointer
+    passed without its argtype would be cut to 32 bits."""
+    import re
+    src = (_build.CSRC / f"{lib}.cu").read_text()
+    found = {}
+    for name, params in re.findall(r'extern "C" int (\w+)\(([^)]*)\)', src):
+        types = [re.sub(r"\s+\w+$", "", p.strip())
+                 for p in params.split(",")]
+        found[name] = tuple(_C_TYPES[t] for t in types)
+    assert found == _build.SIGNATURES[lib]
 
 
 def test_missing_nvcc_raises(monkeypatch, tmp_path):
