@@ -13,7 +13,8 @@ Phases (each raises on failure; nothing is caught):
    dimension's predicate plane through ``pack_bits``, its probes
    through ``probe_rows``, ``bucket_probe_stream`` and
    ``probe_filter_rows``, in chunks of at most 4M for the plain version,
-   and all 13 queries' ``fused_query`` operands).
+   and all 13 queries' ``fused_query`` operands, with their
+   ``pack_query_bits`` bit sets).
 4. Main path: ``generate_ssb(sf)`` -> ``SSBEngine(tables)``, then the 13
    queries through (a) ``run_all(fusion="composed")`` on the probe cache,
    (b) cold ``run(q, use_cache=False)``, (c) ``run(q, fusion="mega")`` and
@@ -49,10 +50,16 @@ Phases (each raises on failure; nothing is caught):
    plain version in chunks, with the share of probes it filters.
 8. Numbers: per-query wall times per path, per-kernel device time per
    launch (CUDA events) beside the plain version's, the bytes each launch
-   must move and the bound they set, ingest and compact times, peak device
-   memory.  ``probe_rows`` and the two filter kernels are also timed on
-   every dimension's operands (tables from date's to part's), with their
-   launches per pass there.
+   must move and the bound they set (for ``fused_query``, what the query's
+   data needs: a row stops at the first dimension that rejects it, so
+   later code vectors and the measure count only in the sectors a
+   surviving row reaches), ingest and compact times, peak device
+   memory.  ``probe_rows``, ``bucket_probe_stream`` and the two filter
+   kernels are also timed on every dimension's operands (tables from
+   date's to part's), and ``fused_query`` on every query, static and
+   live, each with its launches per pass there.  Device times come from
+   CUDA events around launches queued behind a ``torch.cuda._sleep``, so
+   that a wrapper's host time does not hide in them.
 
 The line before the last is the kernel table as JSON; the last line is
 ``{"ok": true, "device": {...}}``.  Exits non-zero, printing no result,
@@ -62,6 +69,7 @@ from __future__ import annotations
 
 import argparse
 import json
+from fractions import Fraction
 import re
 import subprocess
 import sys
@@ -78,21 +86,25 @@ ALU_OPS_PER_S = 67e12
 CHUNK = 4 << 20          # plain-version probes per chunk
 KERNEL_REPS = 10
 PLAIN_REPS = 3
+# cycles of the kernel queued before a timed run (~50 ms at 2 GHz)
+SLEEP_CYCLES = 100_000_000
 # launches of each kernel over one run of each path: cached run_all (4
 # probes), 13 cold queries (32 filtered probes, 4 unfiltered) and 13 mega
 # queries (phase 4, and phase 6 after compaction); the stream schedule's
 # cached and cold paths (phase 5); the live-delta paths (phase 6)
 # (``pack_bits``, the filter kernels' packing of the predicate plane, runs
-# once before each filter kernel, and once more for the delta's key plane)
+# once before each filter kernel, and once more for the delta's key plane;
+# ``pack_query_bits``, the packing of a query's planes, once before each
+# ``fused_query``)
 _ZERO = {"probe_rows": 0, "bucket_probe_stream": 0, "probe_filter_rows": 0,
          "probe_filter_rows_delta": 0, "fused_query": 0,
-         "coalesce_window_mask": 0, "pack_bits": 0}
+         "coalesce_window_mask": 0, "pack_bits": 0, "pack_query_bits": 0}
 EXPECTED_LAUNCHES = dict(_ZERO, probe_rows=8, probe_filter_rows=32,
-                         pack_bits=32, fused_query=13)
+                         pack_bits=32, fused_query=13, pack_query_bits=13)
 EXPECTED_STREAM = dict(_ZERO, bucket_probe_stream=8, probe_filter_rows=32,
                        pack_bits=32)
 EXPECTED_LIVE = dict(_ZERO, probe_rows=8, probe_filter_rows_delta=32,
-                     pack_bits=64, fused_query=13)
+                     pack_bits=64, fused_query=13, pack_query_bits=13)
 # deduped: one probe_rows per unfiltered probe (of the unique keys), as
 # gathered; hot_cold: see hot_cold_launches
 EXPECTED_DEDUPED = dict(_ZERO, probe_rows=8, probe_filter_rows=32,
@@ -118,7 +130,7 @@ MUTATION_FRAC = 0.005
 TIMED_DIM = "part"
 TIMED_QUERY = "Q4.3"
 # the probe kernels timed on every dimension's operands, not only part's
-PER_DIM_KERNELS = ("probe_rows", "probe_filter_rows",
+PER_DIM_KERNELS = ("probe_rows", "bucket_probe_stream", "probe_filter_rows",
                    "probe_filter_rows_delta")
 # the dimension predicate each filter-kernel check uses
 FILTER_QUERY = {"customer": "Q3.1", "supplier": "Q2.1", "part": "Q2.1",
@@ -150,6 +162,7 @@ def main() -> int:
         return 2
     import numpy as np
 
+    from repro_torch.core.hash_table import EMPTY_KEY
     from repro_torch.core import (ExecutionPolicy, build_hot_table, encode,
                                   hash_bucket, hot_hit_count, measure_skew,
                                   pack_words, plan_probe, refine_plan,
@@ -161,6 +174,8 @@ def main() -> int:
     from repro_torch.engine.queries import DIM_PK, FACT_FK, _mega_operands
     from repro_torch.kernels import _build
     from repro_torch.kernels.bucket_probe import pack_bits, pack_bits_plain
+    from repro_torch.kernels.fused_query import (pack_query_bits,
+                                                 pack_query_bits_plain)
     from repro_torch.kernels.ops import (KERNEL_REGISTRY, delta_slot_words,
                                          probe_table, slot_predicate)
 
@@ -178,10 +193,14 @@ def main() -> int:
         return int((a.long() - b.long()).abs().max())
 
     def event_ms(fn, reps) -> float:
+        """Device ms per call of ``fn``: the calls are queued behind a
+        sleeping kernel, so the events see the device's time, not the
+        host's (unless ``fn`` synchronises, as the plain versions do)."""
         fn()
         sync()
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(SLEEP_CYCLES)
         start.record()
         for _ in range(reps):
             fn()
@@ -200,11 +219,12 @@ def main() -> int:
         it; returns (its result, the counts just after)."""
         for op in KERNEL_REGISTRY.values():
             op.fn.launches = 0
-        pack_bits.launches = 0
+        pack_bits.launches = pack_query_bits.launches = 0
         out = fn()
         return out, dict({n: op.fn.launches
                           for n, op in KERNEL_REGISTRY.items()},
-                         pack_bits=pack_bits.launches)
+                         pack_bits=pack_bits.launches,
+                         pack_query_bits=pack_query_bits.launches)
 
     def check_counts(got, want, what):
         log(f"[launches] {what}: {json.dumps(got)}")
@@ -336,8 +356,8 @@ def main() -> int:
         pack_ms[dim] = check_pack(pred, "positive", dim)
         for name, ops, vectors in (
                 ("probe_rows", (tbl.keys, tbl.values, codes, bids), (2, 3)),
-                ("bucket_probe_stream", (tbl.keys, tbl.values, codes, bids),
-                 (2, 3)),
+                ("bucket_probe_stream",
+                 (tbl.keys, tbl.values, codes, tbl.hash_mode), (2,)),
                 ("probe_filter_rows",
                  (tbl.keys, tbl.values, pred, codes, tbl.hash_mode), (3,))):
             check_probe_kernel(name, ops, vectors, dim, 2 * w + 4)
@@ -347,9 +367,10 @@ def main() -> int:
         del codes, bids, pred
 
     def fused_plain_chunked(dim_ops, fmeasure, size):
+        # the probe vectors (pk, and dpk with a delta) in chunks
         groups = torch.zeros(size, dtype=torch.int32, device=fmeasure.device)
         for s in range(0, fmeasure.shape[0], CHUNK):
-            part = tuple(tuple(t[s:s + CHUNK] if i % 4 < 2 else t
+            part = tuple(tuple(t[s:s + CHUNK] if i % 4 == 0 else t
                                for i, t in enumerate(ops)) for ops in dim_ops)
             groups += KERNEL_REGISTRY["fused_query"].plain_fn(
                 part, fmeasure[s:s + CHUNK], num_segments=size)[1]
@@ -357,10 +378,53 @@ def main() -> int:
 
     fused = KERNEL_REGISTRY["fused_query"]
 
+    def dim_passes(ops, lo, hi):
+        """Which of rows [lo, hi) pass the dimension of ``ops`` (the plain
+        version's rule: a delta hit overrides, the attribute must be >= 0
+        and odd)."""
+        def side(pk, tk, ta, mode):
+            b = hash_bucket(pk, tk.shape[0], mode).long()
+            match = tk[b] == pk[:, None]
+            hit = match.any(dim=1) & (pk != EMPTY_KEY)
+            return hit, torch.where(match, ta[b], 0).sum(dim=1).to(
+                torch.int32)
+        hit, attr = side(ops[0][lo:hi], *ops[1:4])
+        attr = torch.where(hit, attr, -1)
+        if len(ops) == 8:
+            dhit, dattr = side(ops[4][lo:hi], *ops[5:8])
+            attr = torch.where(dhit, dattr, attr)
+        return (attr >= 0) & ((attr & 1) == 1)
+
+    def sector_bytes(rows):
+        """32-byte sectors of an (m,) int32 vector holding a row of
+        ``rows``."""
+        pad = torch.nn.functional.pad(rows, (0, -rows.shape[0] % 8))
+        return 32 * int(pad.view(-1, 8).any(dim=1).sum())
+
+    def fused_needed_bytes(dim_ops, fmeasure, stats, size):
+        """What one query's data needs moved: the planes read once; in the
+        kernel's dimension order (passing / occupied slots, ties in the
+        given order), each dimension's probe vectors only in the sectors
+        holding a row that reached it, and the measure only in those
+        holding a row that passed them all; the groups written once."""
+        st = stats.tolist()
+        order = sorted(range(len(dim_ops)),
+                       key=lambda d: Fraction(st[d][0], max(1, st[d][1])))
+        moved = 4 * size + nbytes(*(t for ops in dim_ops
+                                    for i, t in enumerate(ops)
+                                    if torch.is_tensor(t) and i % 4 != 0))
+        alive = torch.ones(n_fact, dtype=torch.bool, device=fmeasure.device)
+        for d in order:
+            moved += sector_bytes(alive) * len(dim_ops[d]) // 4
+            alive &= torch.cat([dim_passes(dim_ops[d], lo, lo + CHUNK)
+                                for lo in range(0, n_fact, CHUNK)])
+        return moved + sector_bytes(alive)
+
     def check_fused(eng, label):
-        """``fused_query`` against its plain version on all 13 queries'
-        operands of ``eng``; returns ms per launch by query."""
-        ms = {}
+        """``fused_query`` (and the ``pack_query_bits`` before it) against
+        its plain version on all 13 queries' operands of ``eng``; times it
+        on each and prints its bytes, bound and launches x gap there."""
+        ms, gap, bound_sum, every_sum = {}, 0.0, 0.0, 0.0
         for q in names:
             spec = SSB_QUERIES[q]
             dim_cols = {d: dict(eng.tables[d].columns)
@@ -369,6 +433,15 @@ def main() -> int:
                    for d in spec.joined_dims()}
             dim_ops, fmeasure, size = _mega_operands(spec, fact_cols,
                                                      dim_cols, idx)
+            (bits, stats), (want_bits, want_stats) = (
+                pack_query_bits(dim_ops), pack_query_bits_plain(dim_ops))
+            if not torch.equal(stats, want_stats) or any(
+                    (x is None) != (y is None)
+                    or (x is not None and not torch.equal(x, y))
+                    for bx, by in zip(bits, want_bits)
+                    for x, y in zip(bx, by)):
+                raise AssertionError(f"pack_query_bits {q} ({label}) "
+                                     "differs from its plain version")
             got = fused.fn(dim_ops, fmeasure, num_segments=size)
             e = max_err(got, fused_plain_chunked(dim_ops, fmeasure, size))
             err["fused_query"] = max(err["fused_query"], e)
@@ -378,11 +451,26 @@ def main() -> int:
             ms[q] = event_ms(lambda: fused.fn(dim_ops, fmeasure,
                                               num_segments=size),
                              KERNEL_REPS)
+            # what this query's data needs moved (each input read once:
+            # every code vector and the measure whole, beside it); one
+            # launch per pass
+            every = nbytes(*(t for ops in dim_ops for t in ops
+                             if torch.is_tensor(t)), fmeasure) + 4 * size
+            moved = fused_needed_bytes(dim_ops, fmeasure, stats, size)
+            w = dim_ops[0][1].shape[1]
+            b_ms, b_by = bound(moved, n_fact * len(dim_ops) * (2 * w + 8))
+            gap += ms[q] - b_ms
+            bound_sum += b_ms
+            every_sum += every / HBM_BYTES_PER_S * 1e3
+            kinds = "+".join("delta" if len(o) == 8 else "static"
+                             for o in dim_ops)
+            log(f"[kernel-query] fused_query {q} ({label}; "
+                f"{[tuple(o[1].shape) for o in dim_ops]} planes, {kinds}, "
+                f"{size} segments, sort stats {stats.tolist()}): "
+                f"{ms[q]:.4f} ms/launch, moves {moved} bytes (every input "
+                f"whole: {every}), bound {b_ms:.4f} ms by {b_by}; 1 launch "
+                f"per pass, launches x gap {ms[q] - b_ms:.4f} ms")
             if q == TIMED_QUERY and "fused_query" not in rows:
-                moved = nbytes(*(t for ops in dim_ops for t in ops),
-                               fmeasure) + 4 * size
-                w = dim_ops[0][2].shape[1]
-                b_ms, b_by = bound(moved, n_fact * len(dim_ops) * (2 * w + 8))
                 rows["fused_query"] = {
                     "shape": f"{q}: {n_fact} rows, {len(dim_ops)} dims, "
                              f"{size} segments", "bytes": moved,
@@ -390,11 +478,15 @@ def main() -> int:
                     "plain_ms": event_ms(lambda: fused_plain_chunked(
                         dim_ops, fmeasure, size), PLAIN_REPS),
                     "bound_ms": b_ms, "bound_by": b_by}
-            del dim_ops, fmeasure, got
-        log(f"[parity] fused_query on all {len(names)} queries' operands "
-            f"({label}): bit-identical")
+            del dim_ops, fmeasure, got, bits, want_bits
+        log(f"[parity] pack_query_bits and fused_query on all {len(names)} "
+            f"queries' operands ({label}): bit-identical")
         log(f"[kernel] fused_query ms per launch by query ({label}): "
             f"{json.dumps({q: round(v, 4) for q, v in ms.items()})}")
+        log(f"[kernel-query] fused_query sum over {len(names)} queries "
+            f"({label}): {sum(ms.values()):.4f} ms, bound {bound_sum:.4f} "
+            f"ms (every input whole: {every_sum:.4f} ms), launches x gap "
+            f"{gap:.4f} ms")
         return ms
 
     check_fused(engine, "static indexes")
@@ -832,7 +924,15 @@ def main() -> int:
                 for d in DIM_PK}
     if sum(filtered.values()) != EXPECTED_LAUNCHES["probe_filter_rows"]:
         raise AssertionError(f"filtered probes by dimension {filtered}")
-    by_dim = {"probe_rows": {d: 1 + unfiltered.count(d) for d in DIM_PK},
+    # the stream schedule makes the probes the gathered one makes with
+    # probe_rows
+    unfiltered_probes = {d: 1 + unfiltered.count(d) for d in DIM_PK}
+    if sum(unfiltered_probes.values()) != \
+            EXPECTED_STREAM["bucket_probe_stream"]:
+        raise AssertionError(f"stream probes by dimension "
+                             f"{unfiltered_probes}")
+    by_dim = {"probe_rows": unfiltered_probes,
+              "bucket_probe_stream": unfiltered_probes,
               "probe_filter_rows": filtered,
               "probe_filter_rows_delta": filtered}
     for name, dims in per_dim.items():

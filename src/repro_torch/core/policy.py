@@ -50,13 +50,13 @@ class ExecutionPolicy:
     kernel    -- probe implementation: "cuda" hand-written kernels (the
                  plain versions on CPU tensors), "torch" gather math.
     schedule  -- probe schedule: "gathered" (``probe_rows``, one thread per
-                 probe), "stream" (``bucket_probe_stream``, W lanes of a
-                 warp per probe), "deduped" (coalesce, probe the unique
-                 keys), "hot_cold" (a replicated hot table plus a deduped
-                 cold remainder), or "auto" (the planner picks one per
-                 dimension from the fact-side skew; CPU engines only until
-                 the planner slice).  Filtered cold probes take the filter
-                 kernels under every schedule.
+                 probe), "stream" (``bucket_probe_stream``, a ring of
+                 asynchronous key-row copies), "deduped" (coalesce, probe
+                 the unique keys), "hot_cold" (a replicated hot table plus
+                 a deduped cold remainder), or "auto" (the planner picks
+                 one per dimension from the fact-side skew; CPU engines
+                 only until the planner slice).  Filtered cold probes take
+                 the filter kernels under every schedule.
     fusion    -- "mega" one fused_query launch per query, "composed" the
                  per-stage pipeline.
     use_cache -- default for the cross-query probe cache on ``run``.

@@ -54,7 +54,6 @@ from repro_torch.core import costmodel
 from repro_torch.core import hash_table as _ht
 from repro_torch.core.delta import TOMBSTONE, delta_is_empty, delta_stats
 from repro_torch.core.dictionary import encode
-from repro_torch.core.hash_table import hash_bucket
 from repro_torch.core.lookup import build_hot_table, hot_hit_count
 from repro_torch.core.planner import (CompactionPlan, SchedulePlan,
                                       plan_compaction, plan_probe,
@@ -238,15 +237,16 @@ def _filter_aggregate(spec: QuerySpec, fact_cols, dim_cols, probes):
 def _mega_operands(spec: QuerySpec, fact_cols, dim_cols, indexes):
     """Build the ``fused_query`` operands for one SSB query.
 
-    Per joined dimension: the per-slot *attribute plane* --
-    ``(group_key*stride << 1) | pred_bit`` for unique in-range payloads,
-    -1 for dup/invalid slots -- over the hash table, plus the probe codes
-    and bucket ids; the kernel gathers the bucket rows itself.  With a live
-    delta, the same plane over the delta's words (tombstones -1), the raw
-    fact keys and the delta bucket ids follow, as the 8-tuple
-    ``fused_query`` takes.  Strides are suffix products of the group
-    cardinalities, so the composite key is a plain sum across dimensions,
-    equal to ``_filter_aggregate``'s.
+    Per joined dimension: the probe codes, the hash table's key plane, the
+    per-slot *attribute plane* -- ``(group_key*stride << 1) | pred_bit``
+    for unique in-range payloads, -1 for dup/invalid slots -- and the
+    table's hash mode; the kernel hashes the codes and gathers the bucket
+    rows itself.  With a live delta, the raw fact keys, the delta's key
+    plane, the same attribute plane over the delta's words (tombstones -1)
+    and its hash mode follow, as the 8-tuple ``fused_query`` takes.
+    Strides are suffix products of the group cardinalities, so the
+    composite key is a plain sum across dimensions, equal to
+    ``_filter_aggregate``'s.
     """
     fact = Table(fact_cols)
     measure = spec.measure(fact).to(torch.int32)
@@ -281,15 +281,13 @@ def _mega_operands(spec: QuerySpec, fact_cols, dim_cols, indexes):
 
         table = idx.table
         fk = fact_cols[FACT_FK[dim]]
-        codes = encode(idx.dictionary, fk)
-        bids = hash_bucket(codes, table.num_buckets, table.hash_mode)
-        ops = (codes, bids, table.keys,
-               attr_of(table.values, (table.values & 1) == 1))
+        ops = (encode(idx.dictionary, fk), table.keys,
+               attr_of(table.values, (table.values & 1) == 1),
+               table.hash_mode)
         if idx.delta is not None:
             d = idx.delta
-            raw = fk.to(torch.int32)
-            ops += (raw, hash_bucket(raw, d.num_buckets, d.hash_mode),
-                    d.keys, attr_of(d.words, d.words == TOMBSTONE))
+            ops += (fk.to(torch.int32), d.keys,
+                    attr_of(d.words, d.words == TOMBSTONE), d.hash_mode)
         dim_ops.append(ops)
     return tuple(dim_ops), measure, size
 

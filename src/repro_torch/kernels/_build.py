@@ -1,10 +1,11 @@
 """Build and load the port's CUDA kernels: ``nvcc`` -> shared library -> ctypes.
 
 Each ``csrc/<name>.cu`` compiles on its own into ``_build/lib<name>-<hash>.so``
-(``<hash>`` covers the source and the flags, so an edited source rebuilds and
-an unchanged one is reused).  The libraries expose a plain ``extern "C"``
-interface: every pointer and the stream travel as ``c_void_p``, sizes as
-``c_int64``/``c_int32``, and each launcher returns ``cudaGetLastError()``.
+(``<hash>`` covers the source, the shared ``csrc/*.cuh`` headers and the
+flags, so an edited source rebuilds and an unchanged one is reused).  The
+libraries expose a plain ``extern "C"`` interface: every pointer and the
+stream travel as ``c_void_p``, sizes as ``c_int64``/``c_int32``, and each
+launcher returns ``cudaGetLastError()``.
 Nothing here includes PyTorch's headers, which keeps a build to seconds.
 
 Building happens at the first launch (or up front through ``build``), never
@@ -43,13 +44,17 @@ SIGNATURES = {
         "probe_filter_rows_delta_launch": (_P, _P, _P, _P, _P, _P, _P, _P,
                                            _P, _P, _I64, _I64, _I32, _I32,
                                            _I64, _I32, _I32, _P),
-        # tk, tv, keys, bids, out, m, w, stream
-        "bucket_probe_stream_launch": (_P, _P, _P, _P, _P, _I64, _I32, _P),
+        # tk, tv, keys, out, m, num_buckets, w, fib, stream
+        "bucket_probe_stream_launch": (_P, _P, _P, _P, _I64, _I64, _I32,
+                                       _I32, _P),
     },
     "fused_query": {
-        # dim pointer table (host), widths (host), n_dims, fmeasure, m,
-        # groups, num_segments, grid, stream
-        "fused_query_launch": (_P, _P, _I32, _P, _I64, _P, _I32, _I32, _P),
+        # dim pointer table (host), dim integer table (host), n_dims,
+        # stats, stream
+        "fused_pack_launch": (_P, _P, _I32, _P, _P),
+        # dim pointer table, dim integer table, n_dims, stats, fmeasure, m,
+        # groups, num_segments, stream
+        "fused_query_launch": (_P, _P, _I32, _P, _P, _I64, _P, _I32, _P),
     },
     "coalesce_window": {
         # keys, out, m, window, stream
@@ -70,7 +75,9 @@ def _nvcc() -> str:
 
 
 def library_path(name: str) -> Path:
-    src = (CSRC / f"{name}.cu").read_bytes()
+    # the shared headers are part of every source's digest
+    src = b"".join(p.read_bytes() for p in
+                   [CSRC / f"{name}.cu", *sorted(CSRC.glob("*.cuh"))])
     digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
     return BUILD_DIR / f"lib{name}-{digest[:16]}.so"
 

@@ -5,15 +5,17 @@ bucket_probe.py``: ``probe_rows``, ``probe_filter_rows``,
 ``probe_filter_rows_delta`` and ``bucket_probe_stream``.  All take the
 ``(B, W)`` table planes and gather each bucket row inside the kernel, so
 the ``(m, W)`` rows the TPU kernels consume never reach device memory.
-``probe_rows`` and ``bucket_probe_stream`` take per-probe bucket ids;
-the two filter kernels take the table's hash mode instead and hash each
-key themselves, and read the predicate plane as bits per slot and per
-bucket (``pack_bits``).  ``bucket_probe_stream`` computes what
-``probe_rows`` computes, with W lanes of a warp per probe instead of one
-thread.
+``probe_rows`` takes per-probe bucket ids; ``bucket_probe_stream`` and the
+two filter kernels take the table's hash mode instead (the bucket count is
+the planes' first dimension) and hash each key themselves.  The filter
+kernels read the predicate plane as bits per slot and per bucket
+(``pack_bits``).  ``bucket_probe_stream`` computes what ``probe_rows``
+computes, through a ring of asynchronous key-row copies in shared memory
+(or, for a table whose planes fit there, from shared memory).
 
 Dispatch: a CUDA tensor launches the kernel (and raises if it cannot be
-built or launched); a CPU tensor takes the plain version, which gathers
+built or launched); a CPU tensor takes the plain version, which hashes
+with ``hash_bucket`` where the kernel hashes, gathers
 ``table[bucket_ids]`` and applies ``kernels/ref.py``.  ``launches`` on each
 wrapper counts kernel launches.
 """
@@ -64,8 +66,11 @@ def probe_rows_plain(table_keys, table_vals, probe_keys, bucket_ids):
                                 bucket_ids)
 
 
-# the stream kernel computes what probe_rows computes
-bucket_probe_stream_plain = probe_rows_plain
+def bucket_probe_stream_plain(table_keys, table_vals, probe_keys,
+                              hash_mode):
+    """The plain version of ``bucket_probe_stream``: hash, gather, ``ref``."""
+    b = hash_bucket(probe_keys, table_keys.shape[0], hash_mode)
+    return ref.bucket_probe_ref(table_keys, table_vals, probe_keys, b)
 
 
 def _hash_code(hash_mode: str) -> int:
@@ -175,14 +180,15 @@ def probe_rows(table_keys: torch.Tensor, table_vals: torch.Tensor,
 
 def bucket_probe_stream(table_keys: torch.Tensor, table_vals: torch.Tensor,
                         probe_keys: torch.Tensor,
-                        bucket_ids: torch.Tensor) -> torch.Tensor:
-    """The streaming schedule's probe: ``probe_rows``'s operands and
-    result, with ``min(W, 32)`` lanes of a warp sharing each probe."""
+                        hash_mode: str) -> torch.Tensor:
+    """The streaming schedule's probe: (B, W) x2, (m,) keys -> (m,) packed
+    words, ``probe_rows``'s result.  The kernel hashes each key into the
+    ``B`` buckets itself (``hash_mode`` is the table's)."""
     planes = (table_keys, table_vals)
-    m, w = _check_operands("bucket_probe_stream", planes,
-                           (probe_keys, bucket_ids))
+    m, w = _check_operands("bucket_probe_stream", planes, (probe_keys,))
+    fib = _hash_code(hash_mode)
     if probe_keys.device.type == "cpu":
-        return bucket_probe_stream_plain(*planes, probe_keys, bucket_ids)
+        return bucket_probe_stream_plain(*planes, probe_keys, hash_mode)
     _check_cuda("bucket_probe_stream", planes, w)
     out = torch.empty(m, dtype=torch.int32, device=probe_keys.device)
     if m == 0:
@@ -190,7 +196,7 @@ def bucket_probe_stream(table_keys: torch.Tensor, table_vals: torch.Tensor,
     lib = _build.load("bucket_probe")
     _build.check(lib.bucket_probe_stream_launch(
         table_keys.data_ptr(), table_vals.data_ptr(), probe_keys.data_ptr(),
-        bucket_ids.data_ptr(), out.data_ptr(), m, w, _stream()),
+        out.data_ptr(), m, table_keys.shape[0], w, fib, _stream()),
         "bucket_probe_stream")
     bucket_probe_stream.launches += 1
     return out

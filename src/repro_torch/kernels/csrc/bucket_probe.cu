@@ -60,12 +60,27 @@
 // per probe; two, four or eight probes per thread; the bucket bits read
 // through L1 only.
 //
-// bucket_probe_stream is the other probe design, kept so the two can be
-// compared on the card: the TPU kernel DMAs one bucket row per probe, and
-// here G = min(W, 32) lanes of a warp share one probe, each lane loading
-// one slot (a warp covers 32/G probes, one coalesced sector each at W=8),
-// then a ballot and a butterfly of shuffles inside the group combine the
-// lanes.  W > 32 loops over 32-lane chunks.
+// bucket_probe_stream is the stream schedule's probe: probe_rows' result,
+// the key hashed in the kernel (no bucket-id vector), and the TPU kernel's
+// row-activation pipeline (one bucket-row DMA per probe, double-buffered
+// against the compare of the step before) rebuilt on Hopper's asynchronous
+// copies.  Persistent blocks; each thread walks its probes with a grid
+// stride (4 blocks of 256 threads per SM) and keeps a ring of kRingStages
+// (2: double buffering) key rows in shared memory: it hashes the key of
+// the probe kRingStages - 1 ahead and issues cp.async (16 B, .ca: cached
+// in L1 as well) of that bucket's key row into the ring, one commit group
+// per probe, then compares the row that has arrived.  The value word is
+// read only from the int4 group that matched.  Each thread reads only the
+// ring slots it filled, so no barrier is needed.  Where both planes fit
+// kTableSmemBudget (date: 2 x 32 KiB), a block copies them whole into
+// shared memory with cp.async and probes there.  What bounds the ring is
+// what bounds probe_rows: the rate of random sectors from L2 (a deeper
+// ring, .cg copies or the value loaded a probe later bought nothing), and
+// its shared memory comes out of L1, so on tables that L1 partly holds
+// (supplier's 256 KiB planes) it loses to one thread per probe.  This
+// kernel's first design (W lanes of a warp per probe, a ballot and
+// shuffles: instruction issue bound) is kept in tools/stream_designs.cu
+// with the other designs tried.
 //
 // Semantics (bit-identical to the plain versions): found = any lane equals
 // the key and the key is not EMPTY_KEY; the word is the int32 sum of the
@@ -76,13 +91,12 @@
 #include <cstdint>
 #include <cuda_runtime.h>
 
+#include "probe_common.cuh"
+
 namespace {
 
-constexpr int32_t kEmpty = -0x7FFFFFFF;
 constexpr int32_t kNull = -2;
 constexpr int kThreads = 256;
-constexpr unsigned kFull = 0xffffffffu;
-constexpr uint32_t kFib = 2654435769u;  // 2^32 / golden ratio
 // the filter kernels' persistent blocks: two of 1024 threads on each SM,
 // each holding at most kSmemBudget bytes of bucket bits (part's 524288
 // buckets and its delta's 65536: 73,728 bytes)
@@ -95,35 +109,6 @@ __device__ __forceinline__ uint32_t lane_sum(const int4 v, bool m0, bool m1,
          (m1 ? static_cast<uint32_t>(v.y) : 0u) +
          (m2 ? static_cast<uint32_t>(v.z) : 0u) +
          (m3 ? static_cast<uint32_t>(v.w) : 0u);
-}
-
-// The matching lanes of one int4 group as 4 bits.
-__device__ __forceinline__ uint32_t match4(const int4 v, int32_t k) {
-  return static_cast<uint32_t>(v.x == k) |
-         static_cast<uint32_t>(v.y == k) << 1 |
-         static_cast<uint32_t>(v.z == k) << 2 |
-         static_cast<uint32_t>(v.w == k) << 3;
-}
-
-// core/hash_table.py:hash_bucket on the card: the key's int32 bits as
-// uint32, then either the low bits (identity) or the top `bits` bits of the
-// wrapping product with kFib (Fibonacci), masked to the bucket count.
-struct Hash {
-  uint32_t mask;   // num_buckets - 1
-  int32_t shift;   // 32 - max(1, bit_length(num_buckets - 1))
-  int32_t fib;     // 0: identity, 1: Fibonacci
-};
-
-__device__ __forceinline__ uint32_t bucket_of(int32_t k, const Hash h) {
-  uint32_t u = static_cast<uint32_t>(k);
-  if (h.fib) u = (u * kFib) >> h.shift;
-  return u & h.mask;
-}
-
-Hash make_hash(int64_t num_buckets, int32_t fib) {
-  int bits = 1;
-  while ((int64_t{1} << bits) < num_buckets) ++bits;
-  return Hash{static_cast<uint32_t>(num_buckets - 1), 32 - bits, fib};
 }
 
 // The delta operands of probe_filter_rows_delta (unused otherwise).
@@ -360,45 +345,6 @@ filter_smem_kernel(const FilterArgs a, int32_t nbw, int32_t dnbw) {
   }
 }
 
-template <int W>
-__global__ void __launch_bounds__(kThreads)
-stream_kernel(const int32_t* __restrict__ tk, const int32_t* __restrict__ tv,
-              const int32_t* __restrict__ keys,
-              const int32_t* __restrict__ bids, int32_t* __restrict__ out,
-              int64_t m) {
-  constexpr int G = W < 32 ? W : 32;  // lanes per probe
-  const int64_t t = static_cast<int64_t>(blockIdx.x) * kThreads + threadIdx.x;
-  const int64_t i = t / G;            // this lane's probe
-  const int sub = static_cast<int>(t % G);
-  const int lane = threadIdx.x & 31;
-  const unsigned group =
-      G == 32 ? kFull : (((1u << G) - 1u) << (lane - lane % G));
-  // no early return: every lane of the warp takes part in the shuffles
-  const bool active = i < m;
-  int32_t k = kEmpty;
-  int64_t row = 0;
-  if (active) {
-    k = keys[i];
-    row = static_cast<int64_t>(bids[i]) * W;
-  }
-  bool any = false;
-  uint32_t word = 0;
-#pragma unroll
-  for (int c = 0; c < W; c += G) {
-    const bool match = active && __ldg(tk + row + c + sub) == k;
-    uint32_t v = match ? static_cast<uint32_t>(__ldg(tv + row + c + sub)) : 0u;
-    any |= (__ballot_sync(kFull, match) & group) != 0u;
-#pragma unroll
-    for (int off = G / 2; off > 0; off >>= 1) {
-      v += __shfl_xor_sync(kFull, v, off, G);
-    }
-    word += v;
-  }
-  if (active && sub == 0) {
-    out[i] = any && k != kEmpty ? static_cast<int32_t>(word) : kNull;
-  }
-}
-
 unsigned grid_for(int64_t threads) {
   return static_cast<unsigned>((threads + kThreads - 1) / kThreads);
 }
@@ -472,12 +418,213 @@ int launch_pack(const int32_t* p, int64_t nb, int32_t w, uint32_t* sb,
   return cudaGetLastError();
 }
 
+// ---------------------------------------------------------------------------
+// bucket_probe_stream
+// ---------------------------------------------------------------------------
+
+// key rows in flight per thread, plus the one being compared, whether their
+// copies are cached in L1, and ring blocks per SM (of the 8 that fit at
+// W = 8: fewer leave more of the SM's memory to L1)
+constexpr int kRingStages = 2;
+constexpr bool kRingL1 = true;
+constexpr int kRingBlocksPerSM = 4;
+// both planes of a table probed from shared memory, two blocks per SM
+constexpr int kTableThreads = 1024;
+constexpr size_t kTableSmemBudget = 96 << 10;
+
+// 16 bytes global -> shared, asynchronously: kL1 caches them in L1 (.ca),
+// else only in L2 (.cg)
+template <bool kL1 = false>
+__device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
+  const unsigned dst = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  if (kL1) {
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 16;\n"
+                 :: "r"(dst), "l"(gmem) : "memory");
+  } else {
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n"
+                 :: "r"(dst), "l"(gmem) : "memory");
+  }
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" :: "n"(N) : "memory");
+}
+
+__device__ __forceinline__ uint32_t lane_sum4(const int4 v, uint32_t m4) {
+  return lane_sum(v, m4 & 1u, m4 & 2u, m4 & 4u, m4 & 8u);
+}
+
+// The word of key k against the key row at `row` (G int4 groups, `step`
+// int4 apart) and the value row at `rv`: the sum of the matched lanes'
+// values, read only from the groups that matched.  Both rows may be in
+// shared or global memory.
+template <int G, int step>
+__device__ __forceinline__ int32_t row_word(const int4* row, const int4* rv,
+                                            int32_t k) {
+  bool any = false;
+  uint32_t word = 0;
+#pragma unroll
+  for (int j = 0; j < G; ++j) {
+    const uint32_t mm = match4(row[j * step], k);
+    if (mm != 0) {
+      any = true;
+      word += lane_sum4(rv[j], mm);
+    }
+  }
+  return any && k != kEmpty ? static_cast<int32_t>(word) : kNull;
+}
+
+// threads of a ring block: 256 up to W = 16, fewer above so that the ring
+// of a block stays within S x 256 x 64 B
+template <int W>
+__host__ __device__ constexpr int ring_threads() {
+  return W <= 16 ? 256 : 4096 / W;
+}
+
+// The ring: each thread's S slots of one key row (W / 4 int4, laid out
+// [S][W / 4][T] so that a warp's reads of one int4 are contiguous) and one
+// key ([S][T] int32, after the rows).
+template <int W, int S, bool kL1>
+__global__ void __launch_bounds__(W <= 16 ? 256 : 4096 / W, W <= 8 ? 8 : 1)
+stream_ring_kernel(const int32_t* __restrict__ tk,
+                   const int32_t* __restrict__ tv,
+                   const int32_t* __restrict__ keys, int32_t* __restrict__ out,
+                   int64_t m, const Hash h) {
+  constexpr int T = ring_threads<W>();
+  constexpr int G = W / 4;
+  extern __shared__ int4 ring[];
+  int32_t* skey = reinterpret_cast<int32_t*>(ring + S * T * G);
+  const int tid = threadIdx.x;
+  const int64_t stride = static_cast<int64_t>(gridDim.x) * T;
+  const int64_t first = static_cast<int64_t>(blockIdx.x) * T + tid;
+  // hash probe p's key and start the copy of its key row into slot st; one
+  // commit group per probe, empty past the end, so the count stays exact
+  auto issue = [&](int64_t p, int st) {
+    if (p < m) {
+      const int32_t k = __ldcs(keys + p);
+      skey[st * T + tid] = k;
+      const int4* src = reinterpret_cast<const int4*>(
+          tk + static_cast<int64_t>(bucket_of(k, h)) * W);
+      int4* dst = ring + st * G * T + tid;
+#pragma unroll
+      for (int j = 0; j < G; ++j) cp_async16<kL1>(dst + j * T, src + j);
+    }
+    cp_async_commit();
+  };
+#pragma unroll
+  for (int st = 0; st < S - 1; ++st) issue(first + st * stride, st);
+  int st = 0;
+  for (int64_t p = first; p < m; p += stride) {
+    issue(p + (S - 1) * stride, st == 0 ? S - 1 : st - 1);
+    cp_async_wait<S - 1>();  // probe p's row has arrived
+    const int32_t k = skey[st * T + tid];
+    const int4* rv = reinterpret_cast<const int4*>(
+        tv + static_cast<int64_t>(bucket_of(k, h)) * W);
+    __stcs(out + p, row_word<G, T>(ring + st * G * T + tid, rv, k));
+    st = st + 1 == S ? 0 : st + 1;
+  }
+  cp_async_wait<0>();
+}
+
+// Both planes in shared memory ([B][W / 4] int4 keys, then values), copied
+// once per block; then a grid stride over the probes.
+template <int W>
+__global__ void __launch_bounds__(kTableThreads, 2)
+stream_table_kernel(const int32_t* __restrict__ tk,
+                    const int32_t* __restrict__ tv,
+                    const int32_t* __restrict__ keys,
+                    int32_t* __restrict__ out, int64_t m, const Hash h,
+                    int64_t num_buckets) {
+  constexpr int G = W / 4;
+  extern __shared__ int4 tab[];
+  const int64_t n4 = num_buckets * G;
+  const int4* gk = reinterpret_cast<const int4*>(tk);
+  const int4* gv = reinterpret_cast<const int4*>(tv);
+  for (int64_t j = threadIdx.x; j < n4; j += kTableThreads) {
+    cp_async16(tab + j, gk + j);
+    cp_async16(tab + n4 + j, gv + j);
+  }
+  cp_async_commit();
+  cp_async_wait<0>();
+  __syncthreads();
+  const int64_t stride = static_cast<int64_t>(gridDim.x) * kTableThreads;
+  for (int64_t i = static_cast<int64_t>(blockIdx.x) * kTableThreads +
+                   threadIdx.x;
+       i < m; i += stride) {
+    const int32_t k = __ldcs(keys + i);
+    const int64_t row = static_cast<int64_t>(bucket_of(k, h)) * G;
+    __stcs(out + i, row_word<G, 1>(tab + row, tab + n4 + row, k));
+  }
+}
+
+// A persistent grid of `kernel`: as many blocks as fit on the card (at most
+// max_per_sm on an SM, when > 0), and no more than one per `threads` probes.
+template <typename Kernel>
+int persistent_grid(Kernel kernel, int threads, size_t smem, int64_t m,
+                    unsigned* grid, int max_per_sm = 0) {
+  int dev = 0, sms = 0, per_sm = 0;
+  int status = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(smem));
+  if (status == cudaSuccess) status = cudaGetDevice(&dev);
+  if (status == cudaSuccess) {
+    status = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  }
+  if (status == cudaSuccess) {
+    status = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel,
+                                                           threads, smem);
+  }
+  if (status != cudaSuccess) return status;
+  if (per_sm < 1) return cudaErrorInvalidConfiguration;
+  if (max_per_sm > 0 && per_sm > max_per_sm) per_sm = max_per_sm;
+  const int64_t need = (m + threads - 1) / threads;
+  const int64_t full = int64_t{sms} * per_sm;
+  *grid = static_cast<unsigned>(need < full ? need : full);
+  return cudaSuccess;
+}
+
+template <int W, int S, bool kL1>
+int launch_ring(const int32_t* k, const int32_t* v, const int32_t* q,
+                int32_t* o, int64_t m, const Hash h, cudaStream_t s,
+                int max_per_sm = 0) {
+  constexpr int T = ring_threads<W>();
+  const size_t smem = S * T * (W * sizeof(int32_t) + sizeof(int32_t));
+  const auto kernel = stream_ring_kernel<W, S, kL1>;
+  unsigned grid = 0;
+  const int status = persistent_grid(kernel, T, smem, m, &grid, max_per_sm);
+  if (status != cudaSuccess) return status;
+  kernel<<<grid, T, smem, s>>>(k, v, q, o, m, h);
+  return cudaGetLastError();
+}
+
+template <int W>
+int launch_table(const int32_t* k, const int32_t* v, const int32_t* q,
+                 int32_t* o, int64_t m, const Hash h, int64_t num_buckets,
+                 cudaStream_t s) {
+  const size_t smem = 2 * sizeof(int32_t) * W * num_buckets;
+  const auto kernel = stream_table_kernel<W>;
+  unsigned grid = 0;
+  const int status = persistent_grid(kernel, kTableThreads, smem, m, &grid);
+  if (status != cudaSuccess) return status;
+  kernel<<<grid, kTableThreads, smem, s>>>(k, v, q, o, m, h, num_buckets);
+  return cudaGetLastError();
+}
+
 template <int W>
 int launch_stream(const int32_t* k, const int32_t* v, const int32_t* q,
-                  const int32_t* b, int32_t* o, int64_t m, cudaStream_t s) {
-  constexpr int G = W < 32 ? W : 32;
-  stream_kernel<W><<<grid_for(m * G), kThreads, 0, s>>>(k, v, q, b, o, m);
-  return cudaGetLastError();
+                  int32_t* o, int64_t m, int64_t num_buckets, int32_t fib,
+                  cudaStream_t s) {
+  const Hash h = make_hash(num_buckets, fib);
+  if (2 * sizeof(int32_t) * W * num_buckets <= kTableSmemBudget) {
+    return launch_table<W>(k, v, q, o, m, h, num_buckets, s);
+  }
+  return launch_ring<W, kRingStages, kRingL1>(k, v, q, o, m, h, s,
+                                             kRingBlocksPerSM);
 }
 
 }  // namespace
@@ -563,24 +710,26 @@ extern "C" int probe_filter_rows_delta_launch(
                  : launch_filter<-1>(a, num_buckets, delta_buckets, w, stream);
 }
 
+
+// fib: the table's hash mode, 0 identity, 1 Fibonacci.
 extern "C" int bucket_probe_stream_launch(const void* tk, const void* tv,
-                                          const void* keys, const void* bids,
-                                          void* out, int64_t m, int32_t w,
+                                          const void* keys, void* out,
+                                          int64_t m, int64_t num_buckets,
+                                          int32_t w, int32_t fib,
                                           void* stream) {
   if (m == 0) return cudaSuccess;
   const auto* k = static_cast<const int32_t*>(tk);
   const auto* v = static_cast<const int32_t*>(tv);
   const auto* q = static_cast<const int32_t*>(keys);
-  const auto* b = static_cast<const int32_t*>(bids);
   auto* o = static_cast<int32_t*>(out);
   const auto s = static_cast<cudaStream_t>(stream);
   switch (w) {
-    case 4: return launch_stream<4>(k, v, q, b, o, m, s);
-    case 8: return launch_stream<8>(k, v, q, b, o, m, s);
-    case 16: return launch_stream<16>(k, v, q, b, o, m, s);
-    case 32: return launch_stream<32>(k, v, q, b, o, m, s);
-    case 64: return launch_stream<64>(k, v, q, b, o, m, s);
-    case 128: return launch_stream<128>(k, v, q, b, o, m, s);
+    case 4: return launch_stream<4>(k, v, q, o, m, num_buckets, fib, s);
+    case 8: return launch_stream<8>(k, v, q, o, m, num_buckets, fib, s);
+    case 16: return launch_stream<16>(k, v, q, o, m, num_buckets, fib, s);
+    case 32: return launch_stream<32>(k, v, q, o, m, num_buckets, fib, s);
+    case 64: return launch_stream<64>(k, v, q, o, m, num_buckets, fib, s);
+    case 128: return launch_stream<128>(k, v, q, o, m, num_buckets, fib, s);
     default: return cudaErrorInvalidValue;
   }
 }

@@ -1,18 +1,19 @@
 """Probe entry points over the CUDA kernels, and the kernel registry.
 
 ``probe_table`` / ``probe_table_filtered`` / ``probe_table_filtered_delta``
-are what ``engine/join.py`` calls on the ``"cuda"`` kernel.  ``probe_table``
-hashes the probe keys (a plain elementwise op, as in the JAX package) and
-hands the table planes and bucket ids to the kernel, which gathers the
-bucket rows itself; the two filtered entries hand over the table's hash
+are what ``engine/join.py`` calls on the ``"cuda"`` kernel.  On the
+gathered schedule ``probe_table`` hashes the probe keys (a plain
+elementwise op, as in the JAX package) and hands the table planes and
+bucket ids to ``probe_rows``, which gathers the bucket rows itself; the
+stream schedule and the two filtered entries hand over the table's hash
 mode, and their kernels hash each key themselves.
 
 ``KERNEL_REGISTRY`` lists every hand-written kernel with its plain version,
 the TPU kernel it replaces and deterministic operand cases.  The cases are
 the JAX registry's (``repro/kernels/ops.py``), drawn from the same numpy
 seeds and built with the port's own ``core/delta.py``, in the port's
-calling convention: table planes plus bucket ids (or, for the filter
-kernels, the hash mode) instead of gathered rows.
+calling convention: table planes plus bucket ids (``probe_rows``) or the
+hash mode (the others) instead of gathered rows.
 ``coalesce_window_mask`` adds a Zipf stream to the reference's case.
 """
 from __future__ import annotations
@@ -42,16 +43,19 @@ def probe_table(table: JSPIMTable, probe_keys: torch.Tensor, *,
                 schedule: str = "gathered") -> ProbeResult:
     """Associative search through the probe kernels.
 
-    ``schedule="gathered"`` runs ``probe_rows`` (one thread per probe);
-    ``"stream"`` runs ``bucket_probe_stream`` (W lanes of a warp per
-    probe).  Both give the same words.
+    ``schedule="gathered"`` runs ``probe_rows`` (one thread per probe, on
+    bucket ids hashed here); ``"stream"`` runs ``bucket_probe_stream`` (a
+    ring of asynchronous key-row copies; it hashes the keys itself).  Both
+    give the same words.
     """
     keys = probe_keys.to(torch.int32)
-    bids = hash_bucket(keys, table.num_buckets, table.hash_mode)
     if schedule == "gathered":
-        words = probe_rows(table.keys, table.values, keys, bids)
+        words = probe_rows(table.keys, table.values, keys,
+                           hash_bucket(keys, table.num_buckets,
+                                       table.hash_mode))
     elif schedule == "stream":
-        words = bucket_probe_stream(table.keys, table.values, keys, bids)
+        words = bucket_probe_stream(table.keys, table.values, keys,
+                                    table.hash_mode)
     else:
         raise ValueError(f"unknown schedule {schedule!r}")
     return unpack_words(words)
@@ -176,8 +180,9 @@ def _probe_rows_cases(device="cpu"):
 
 
 def _stream_cases(device="cpu"):
-    table, pk, bids = _probe_cases(device)
-    return [("hit_miss_mix", (table.keys, table.values, pk, bids), {})]
+    table, pk, _ = _probe_cases(device)
+    return [("hit_miss_mix", (table.keys, table.values, pk, table.hash_mode),
+             {})]
 
 
 def _filter_cases(device="cpu"):
@@ -214,7 +219,7 @@ def _filter_delta_cases(device="cpu"):
 
 
 def _fused_query_cases(device="cpu"):
-    table, pk, bids = _probe_cases(device)
+    table, pk, _ = _probe_cases(device)
     rng = np.random.default_rng(11)
     n_rows, card = 64, 5
     mask = torch.as_tensor(np.arange(n_rows) % 3 == 0, device=device)
@@ -229,13 +234,11 @@ def _fused_query_cases(device="cpu"):
 
     attr = attr_of(table.values, (table.values & 1) == 1)
     fmeasure = _t(rng.integers(0, 1000, pk.shape[0]), device)
-    cases = [("no_delta", (((pk, bids, table.keys, attr),), fmeasure),
-              {"num_segments": card})]
+    main = (pk, table.keys, attr, table.hash_mode)
+    cases = [("no_delta", ((main,), fmeasure), {"num_segments": card})]
     for state, delta in _delta_states(device):
         dattr = attr_of(delta.words, delta.words == TOMBSTONE)
-        dbids = hash_bucket(pk, delta.num_buckets, delta.hash_mode)
-        dim_ops = ((pk, bids, table.keys, attr, pk, dbids, delta.keys,
-                    dattr),)
+        dim_ops = (main + (pk, delta.keys, dattr, delta.hash_mode),)
         cases.append((state, (dim_ops, fmeasure), {"num_segments": card}))
     return cases
 

@@ -7,6 +7,9 @@ kernels run with ``interpret=True``, on the JAX registry's own cases
 int32: equality is exact.  That the CUDA kernels equal these plain versions
 is checked on the card by ``chip_smoke.py``.
 """
+import itertools
+from fractions import Fraction
+
 import numpy as np
 import jax.numpy as jnp
 import pytest
@@ -28,7 +31,9 @@ from repro_torch.kernels.bucket_probe import (bucket_probe_stream,
                                               probe_filter_rows,
                                               probe_filter_rows_delta,
                                               probe_rows)
-from repro_torch.kernels.fused_query import _gather, fused_query
+from repro_torch.kernels.fused_query import (fingers, fused_query,
+                                             fused_query_plain,
+                                             pack_query_bits)
 
 REGISTRY_CASES = [("probe_rows", 0), ("bucket_probe_stream", 0),
                   ("probe_filter_rows", 0)] + \
@@ -67,11 +72,17 @@ def test_registry_case_matches_pallas_interpret(name, i):
     jname, jargs, jkw = jops.KERNEL_REGISTRY[name].make_cases()[i]
     assert pname == jname
     # the port's operands are the reference's: same planes once gathered
+    # at the reference's bucket ids
     if name == "fused_query":
-        gathered = tuple(_gather(ops) for ops in pargs[0])
+        gathered = tuple(_jax_gathered(ops) for ops in pargs[0])
         _eq(gathered, jargs[0], "dim operands")
         _eq(pargs[1], jargs[1], "fmeasure")
-    elif name in ("bucket_probe_stream", "coalesce_window_mask"):
+    elif name == "bucket_probe_stream":
+        tk, tv, pk, mode = pargs
+        _eq((tk, tv, pk), jargs[:3], "operands")
+        _eq(_t(jht.hash_bucket(jnp.asarray(pk.numpy()), tk.shape[0], mode)),
+            jargs[3], "bucket ids")
+    elif name == "coalesce_window_mask":
         _eq(pargs, jargs, "operands")  # the same operands in both
     elif name == "probe_filter_rows_delta":
         tk, tv, tp, pk, mode, dtk, dtw, raw, dmode = pargs
@@ -165,18 +176,28 @@ def test_probe_kernels_shape_sweep(width, m, hash_mode):
     _eq(got, want)
 
 
-@pytest.mark.parametrize("width", [8, 16])
-@pytest.mark.parametrize("m", [1, 7, 300])
-def test_bucket_probe_stream_shape_sweep(width, m):
-    """The stream kernel's grid runs one step per probe in interpret mode."""
-    tt, jt = _sweep_table(width)
+@pytest.mark.parametrize("m,width,hash_mode", [
+    pytest.param(m, w, tht.HASH_IDENTITY, id=f"{m}-{w}")
+    for m in (1, 7, 300) for w in (8, 16)] + [
+    pytest.param(m, w, mode, id=f"{m}-{w}-{mode}")
+    for m, w, mode in ((300, 4, tht.HASH_FIBONACCI),
+                       (300, 8, tht.HASH_FIBONACCI),
+                       (83, 32, tht.HASH_IDENTITY),
+                       (300, 64, tht.HASH_FIBONACCI),
+                       (83, 128, tht.HASH_IDENTITY))])
+def test_bucket_probe_stream_shape_sweep(m, width, hash_mode):
+    """The stream kernel hashes the keys itself; the Pallas kernel (one
+    grid step per probe in interpret mode) gets the reference's bucket ids.
+    Negative probe keys and EMPTY_KEY among the probes."""
+    tt, jt = _sweep_table(width, hash_mode=hash_mode)
     pk = _sweep_probes(m, m)
-    bids = tht.hash_bucket(_t(pk), tt.num_buckets, tt.hash_mode)
+    pk[3::13] = -pk[3::13] - 1
     jb = jht.hash_bucket(jnp.asarray(pk), jt.num_buckets, jt.hash_mode)
-    got = bucket_probe_stream(tt.keys, tt.values, _t(pk), bids)
+    got = bucket_probe_stream(tt.keys, tt.values, _t(pk), hash_mode)
     want = jbp.bucket_probe_stream(jt.keys, jt.values, jnp.asarray(pk), jb,
                                    block_pb=64, interpret=True)
     _eq(got, want)
+    bids = tht.hash_bucket(_t(pk), tt.num_buckets, tt.hash_mode)
     _eq(got, probe_rows(tt.keys, tt.values, _t(pk), bids))
 
 
@@ -299,22 +320,71 @@ def test_kernel_hash_equals_hash_bucket(num_buckets):
         assert int(got.min()) >= 0 and int(got.max()) < num_buckets
 
 
-def _fused_operands(n_dims, width, m, num_segments, seed):
-    """Random attribute planes over real tables: (port ops, jax ops, fm)."""
+def _jax_gathered(ops):
+    """A port dimension's fused operands as the Pallas kernel takes them:
+    its planes gathered at the reference's ``hash_bucket`` ids."""
+    def gather(keys, tk, ta, mode):
+        k = keys.numpy()
+        b = np.asarray(jht.hash_bucket(jnp.asarray(k), tk.shape[0], mode))
+        return (_t(k), _t(tk.numpy()[b]), _t(ta.numpy()[b]))
+    out = gather(*ops[:4])
+    return out + gather(*ops[4:]) if len(ops) == 8 else out
+
+
+def _fused_operands(n_dims, width, m, num_segments, seed,
+                    hash_mode=tht.HASH_IDENTITY, delta=False, wide=False):
+    """Random attribute planes over real tables: (port ops, jax ops, fm).
+
+    ``delta``: each dimension also gets a live delta (the other hash mode)
+    built by each package's own delta ops: upserts of probed keys with
+    random attributes (some make a row pass that the main table rejects),
+    deletes whose tombstones carry -1, and new keys.  ``wide``: group parts
+    up to ``num_segments`` per dimension, so that some composite keys fall
+    outside ``[0, num_segments)``.  About 70% of the probe keys are in the
+    table."""
     rng = np.random.default_rng(seed)
+    dmode = (tht.HASH_FIBONACCI if hash_mode == tht.HASH_IDENTITY
+             else tht.HASH_IDENTITY)
     port, jax_ops = [], []
+
+    def attr_plane(shape):
+        hi = max(1, num_segments // n_dims + (num_segments // 3 if wide
+                                              else 0))
+        attr = ((rng.integers(0, hi, shape) << 1)
+                | rng.integers(0, 2, shape)).astype(np.int32)
+        attr[rng.random(shape) < 0.1] = -1
+        return attr
+
     for d in range(n_dims):
-        tt, jt = _sweep_table(width, seed=seed + d)
-        hi = max(1, num_segments // n_dims)
-        attr = ((rng.integers(0, hi, tt.keys.shape) << 1)
-                | rng.integers(0, 2, tt.keys.shape)).astype(np.int32)
-        attr[rng.random(tt.keys.shape) < 0.1] = -1
+        tt, _ = _sweep_table(width, seed=seed + d, hash_mode=hash_mode)
         pk = _sweep_probes(m, seed + 10 * d)
-        bids = tht.hash_bucket(_t(pk), tt.num_buckets, tt.hash_mode)
-        jb = np.asarray(jht.hash_bucket(jnp.asarray(pk), jt.num_buckets,
-                                        jt.hash_mode))
-        port.append((_t(pk), bids, tt.keys, _t(attr)))
-        jax_ops.append((jnp.asarray(pk), jt.keys[jb], jnp.asarray(attr[jb])))
+        live = tt.keys[tt.keys != tht.EMPTY_KEY].numpy()
+        hits = rng.random(m) < 0.7
+        pk[hits] = rng.choice(live, int(hits.sum()))
+        pk[3::13] = -pk[3::13] - 1
+        ops = (_t(pk), tt.keys, _t(attr_plane(tt.keys.shape)), hash_mode)
+        if delta:
+            ups = rng.choice(pk, 12).astype(np.int32)
+            dels = rng.choice(pk, 5).astype(np.int32)
+            news = rng.integers(900, 1000, 4).astype(np.int32)
+            td = tdelta.empty_delta(8, 8, hash_mode=dmode)
+            jd = jdelta.empty_delta(8, 8, hash_mode=dmode)
+            for mod, dl in ((tdelta, td), (jdelta, jd)):
+                arr = _t if mod is tdelta else jnp.asarray
+                dl = mod.upsert_batch(dl, arr(np.concatenate([ups, news])),
+                                      arr(np.arange(16, dtype=np.int32)))
+                dl = mod.delete_batch(dl, arr(dels))
+                if mod is tdelta:
+                    td = dl
+                else:
+                    jd = dl
+            _eq(td.keys, jd.keys, "delta keys")
+            dattr = attr_plane(td.keys.shape)
+            dattr[(td.words == tdelta.TOMBSTONE).numpy()] = -1
+            ops += (_t(pk), td.keys, _t(dattr), dmode)
+        port.append(ops)
+        jax_ops.append(tuple(jnp.asarray(t.numpy())
+                             for t in _jax_gathered(ops)))
     fm = rng.integers(-1000, 100_000, m).astype(np.int32)
     fm[rng.random(m) < 0.2] = 0
     return tuple(port), tuple(jax_ops), fm
@@ -329,6 +399,154 @@ def test_fused_query_shape_sweep(n_dims, width, m, num_segments):
     want = jfused_query(jax_ops, jnp.asarray(fm), num_segments=num_segments,
                         block_pb=64, interpret=True)
     _eq(got, want)
+
+
+@pytest.mark.parametrize("n_dims,width,hash_mode,delta", [
+    (1, 4, tht.HASH_FIBONACCI, True), (2, 8, tht.HASH_FIBONACCI, True),
+    (3, 16, tht.HASH_IDENTITY, True), (4, 8, tht.HASH_FIBONACCI, False),
+    (2, 32, tht.HASH_IDENTITY, True), (2, 64, tht.HASH_FIBONACCI, True),
+    (1, 128, tht.HASH_IDENTITY, True)])
+def test_fused_query_hash_modes_widths_deltas(n_dims, width, hash_mode,
+                                              delta):
+    """Both hash modes, W from 4 to 128, live deltas with upserts and
+    tombstones, composite keys out of range: the plain version (which
+    hashes with ``hash_bucket``) against the Pallas kernel fed the
+    reference's bucket ids and gathered rows."""
+    port, jax_ops, fm = _fused_operands(n_dims, width, 1000, 37,
+                                        seed=7 * width + n_dims,
+                                        hash_mode=hash_mode, delta=delta,
+                                        wide=True)
+    got = fused_query(port, _t(fm), num_segments=37)
+    want = jfused_query(jax_ops, jnp.asarray(fm), num_segments=37,
+                        block_pb=64, interpret=True)
+    _eq(got, want)
+    assert int(got[1].ne(0).sum()) > 0
+
+
+@pytest.mark.parametrize("delta", [False, True])
+def test_fused_query_plain_is_order_free(delta):
+    """The kernel probes the most selective dimension first: the answer
+    must not depend on the order of the dimensions."""
+    port, _, fm = _fused_operands(4, 8, 300, 4000, seed=5, delta=delta)
+    want = fused_query_plain(port, _t(fm), num_segments=4000)
+    assert int(want[1].ne(0).sum()) > 0
+    for perm in itertools.permutations(range(4)):
+        _eq(fused_query_plain(tuple(port[i] for i in perm), _t(fm),
+                              num_segments=4000), want, str(perm))
+
+
+def _bit(words, i) -> bool:
+    return bool((int(words[i >> 5]) >> (i & 31)) & 1)
+
+
+def _screened_query(dim_operands, fm, num_segments):
+    """``query_kernel`` of ``csrc/fused_query.cu`` in Python, on
+    ``pack_query_bits``' output: the dimensions sorted by passing /
+    occupied slots; per row and dimension the main bucket and fingerprint
+    bits, then the delta (its key row only where its bucket's occupancy
+    bit is set, or its pass bit where the main bits are not), then the
+    bucket's passing row.  Returns the groups and the number of passing
+    rows read."""
+    bits, stats = pack_query_bits(dim_operands)
+    stats = stats.tolist()
+    # a stable sort on passing / occupied, as the kernel's insertion sort
+    order = sorted(range(len(dim_operands)),
+                   key=lambda d: Fraction(stats[d][0], max(1, stats[d][1])))
+    groups = np.zeros(num_segments, np.int64)
+    rows_read = 0
+
+    def lanes(tk, b, k):
+        return [j for j in range(tk.shape[1]) if int(tk[b, j]) == k]
+
+    def wrap(x):
+        return (x + 2**31) % 2**32 - 2**31
+
+    for i in range(fm.shape[0]):
+        gk, keep = 0, True
+        for d in order:
+            ops = dim_operands[d]
+            bucket_bits, finger, passing, dpass, docc = bits[d]
+            pk, tk, ta, mode = ops[:4]
+            k = int(pk[i])
+            b = int(tht.hash_bucket(pk[i:i + 1], tk.shape[0], mode))
+            f = int(fingers(pk[i:i + 1], tk.shape[0], mode))
+            main = k != tht.EMPTY_KEY and _bit(bucket_bits, b) and \
+                (int(finger[b]) >> f) & 1
+            if len(ops) == 8:
+                dpk, dtk, dta, dmode = ops[4:]
+                dk = int(dpk[i])
+                db = int(tht.hash_bucket(dpk[i:i + 1], dtk.shape[0], dmode))
+                hit = lanes(dtk, db, dk) if dk != tht.EMPTY_KEY and \
+                    _bit(docc if main else dpass, db) else []
+                if hit:
+                    attr = wrap(sum(int(dta[db, j]) for j in hit))
+                    if attr < 0 or attr % 2 == 0:
+                        keep = False
+                        break
+                    gk += attr >> 1
+                    continue
+            if not main:
+                keep = False
+                break
+            rows_read += 1
+            group = None
+            for key, part in passing[b].tolist():
+                if key in (k, tht.EMPTY_KEY):
+                    group = part if key == k else None
+                    break
+            if group is None:
+                keep = False
+                break
+            gk += group
+        gk = wrap(gk)
+        if keep and 0 <= gk < num_segments:
+            groups[gk] += int(fm[i])
+    return _t(wrap(groups)), rows_read
+
+
+@pytest.mark.parametrize("case", ["sweep", "sweep_delta", "upsert_tomb"])
+def test_fused_query_screen_rule_matches_plain(case):
+    """The kernel's screen, transliterated, gives the plain answer: on
+    seeded sweeps, and on a case built so that a delta upsert makes a row
+    pass that the main table rejects, and a tombstone rejects a row that
+    the main table passes.  The screen must also skip key rows."""
+    if case != "upsert_tomb":
+        port, _, fm = _fused_operands(3, 8, 300, 4000, seed=11,
+                                      delta=case == "sweep_delta")
+        fm = _t(fm)
+    else:
+        n = 64
+        keys = _t(np.arange(n))
+        tt = tht.build_table(keys, _t(np.arange(n) * 2), num_buckets=16,
+                             bucket_width=8)
+        # attribute: group part = key, predicate bit = key is odd
+        attr = torch.where(tt.keys == tht.EMPTY_KEY, -1,
+                           (tt.keys << 1) | (tt.keys & 1)).to(torch.int32)
+        td = tdelta.empty_delta(8, 8, hash_mode=tht.HASH_FIBONACCI)
+        td = tdelta.upsert_batch(td, _t([10, 12]), _t([0, 0]))
+        td = tdelta.delete_batch(td, _t([11]))
+        # delta attribute: the upserts pass (10 -> group 5, 12 -> 6)
+        dattr = torch.full(td.keys.shape, -1, dtype=torch.int32)
+        dattr[td.keys == 10] = (5 << 1) | 1
+        dattr[td.keys == 12] = (6 << 1) | 1
+        pk = _t([10, 11, 12, 13, 15, 20, tht.EMPTY_KEY, 33])
+        port = ((pk, tt.keys, attr, tht.HASH_IDENTITY, pk, td.keys, dattr,
+                 tht.HASH_FIBONACCI),)
+        fm = _t([1, 10, 100, 1000, 10_000, 7, 9, 100_000])
+    want = fused_query_plain(port, fm, num_segments=4000)
+    got, rows_read = _screened_query(port, fm, 4000)
+    _eq(got, want[1].numpy())
+    if case == "upsert_tomb":
+        # 10 and 12 pass through the delta (the main table rejects even
+        # keys), 11 is a tombstone, 13, 15 and 33 pass, 20 and EMPTY_KEY not
+        expect = np.zeros(4000, np.int64)
+        for g, v in ((5, 1), (6, 100), (13, 1000), (15, 10_000),
+                     (33, 100_000)):
+            expect[g] += v
+        _eq(want[1], expect)
+    else:
+        assert int(want[1].ne(0).sum()) > 0
+    assert rows_read < sum(fm.shape[0] for _ in port)
 
 
 def test_fused_query_q43_segment_space_matches_reference():
@@ -355,7 +573,7 @@ def test_plain_sums_wrap_like_int32():
     keys = _t(np.zeros((1, 8), np.int32))
     attr = _t(np.full((1, 8), 1, np.int32))  # group 0, predicate 1
     fm = np.full(m, 2**30, np.int32)
-    ops = ((_t(pk), _t(np.zeros(m, np.int32)), keys, attr),)
+    ops = ((_t(pk), keys, attr, tht.HASH_IDENTITY),)
     total, groups = fused_query(ops, _t(fm), num_segments=1)
     want = jref.fused_query_ref(((jnp.asarray(pk), jnp.zeros((m, 8),
                                                              jnp.int32),
