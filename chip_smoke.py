@@ -47,7 +47,16 @@ Phases (each raises on failure; nothing is caught):
    Per s: ``measure_skew``, the gathered, stream, deduped and hot/cold
    schedules through ``lookup`` (equal packed words, fixed launches,
    device time each), and ``coalesce_window_mask`` (window 8) against its
-   plain version in chunks, with the share of probes it filters.
+   plain version in chunks, with the share of probes it filters.  Then
+   ``probe_rows`` and ``coalesce_window_mask`` against their plain
+   versions where their indexing changes: ``probe_rows`` at W = 4 to 128,
+   both hash modes, tables whose planes fit shared memory and larger
+   ones, duplicate keys in a bucket, EMPTY_KEY probes, 0, 1, 1,283 and
+   2^20 + 7 probes and slices that start off a 16-byte boundary; the
+   window at 2, 8, 17 and 32 on every length where its split into a
+   scalar head, spans of 512 keys a warp and a scalar tail changes, the
+   keys starting 0 to 3 keys past a 16-byte boundary, with EMPTY_KEY and
+   NO_CODE among them.
 8. Numbers: per-query wall times per path, per-kernel device time per
    launch (CUDA events) beside the plain version's, the bytes each launch
    must move and the bound they set (for ``fused_query``, what the query's
@@ -57,7 +66,8 @@ Phases (each raises on failure; nothing is caught):
    memory.  ``probe_rows``, ``bucket_probe_stream`` and the two filter
    kernels are also timed on every dimension's operands (tables from
    date's to part's), and ``fused_query`` on every query, static and
-   live, each with its launches per pass there.  Device times come from
+   live, each with its launches per pass there; last, ``ops.probe_table``
+   on part's probes by the host clock (``[ops]``).  Device times come from
    CUDA events around launches queued behind a ``torch.cuda._sleep``, so
    that a wrapper's host time does not hide in them.
 
@@ -86,6 +96,7 @@ ALU_OPS_PER_S = 67e12
 CHUNK = 4 << 20          # plain-version probes per chunk
 KERNEL_REPS = 10
 PLAIN_REPS = 3
+OPS_REPS = 5
 # cycles of the kernel queued before a timed run (~50 ms at 2 GHz)
 SLEEP_CYCLES = 100_000_000
 # launches of each kernel over one run of each path: cached run_all (4
@@ -162,7 +173,8 @@ def main() -> int:
         return 2
     import numpy as np
 
-    from repro_torch.core.hash_table import EMPTY_KEY
+    from repro_torch.core.hash_table import (EMPTY_KEY, build_table,
+                                             suggest_num_buckets)
     from repro_torch.core import (ExecutionPolicy, build_hot_table, encode,
                                   hash_bucket, hot_hit_count, measure_skew,
                                   pack_words, plan_probe, refine_plan,
@@ -260,16 +272,22 @@ def main() -> int:
 
     # -- 3a. kernels against plain versions: registry cases --------------------
     err = {name: 0 for name in KERNEL_REGISTRY}
+
+    def hold(name, args_, kw, what):
+        """Kernel ``name`` against its plain version on one case."""
+        op = KERNEL_REGISTRY[name]
+        got = op.fn(*args_, **kw)
+        want = op.plain_fn(*args_, **kw)
+        sync()
+        e = max_err(got, want)
+        err[name] = max(err[name], e)
+        if e:
+            raise AssertionError(f"{name} ({what}) differs from its plain "
+                                 f"version by {e}")
+
     for name, op in KERNEL_REGISTRY.items():
         for case, cargs, kw in op.make_cases("cuda"):
-            got = op.fn(*cargs, **kw)
-            want = op.plain_fn(*cargs, **kw)
-            sync()
-            e = max_err(got, want)
-            err[name] = max(err[name], e)
-            if e:
-                raise AssertionError(f"{name}[{case}] differs from its plain "
-                                     f"version by {e}")
+            hold(name, cargs, kw, case)
             log(f"[parity] {name}[{case}]: bit-identical")
 
     # -- 4. main path (data, engine) -------------------------------------------
@@ -350,12 +368,12 @@ def main() -> int:
         tbl = index.table
         w = tbl.bucket_width
         codes = encode(index.dictionary, fact_cols[FACT_FK[dim]])
-        bids = hash_bucket(codes, tbl.num_buckets, tbl.hash_mode)
         spec = SSB_QUERIES[FILTER_QUERY[dim]]
         pred = slot_predicate(tbl, spec.dim_filters[dim](tables[dim]))
         pack_ms[dim] = check_pack(pred, "positive", dim)
         for name, ops, vectors in (
-                ("probe_rows", (tbl.keys, tbl.values, codes, bids), (2, 3)),
+                ("probe_rows", (tbl.keys, tbl.values, codes, tbl.hash_mode),
+                 (2,)),
                 ("bucket_probe_stream",
                  (tbl.keys, tbl.values, codes, tbl.hash_mode), (2,)),
                 ("probe_filter_rows",
@@ -364,7 +382,7 @@ def main() -> int:
         log(f"[parity] pack_bits, probe_rows, bucket_probe_stream, "
             f"probe_filter_rows on {dim} ({n_fact} probes, "
             f"{FILTER_QUERY[dim]} predicate): bit-identical")
-        del codes, bids, pred
+        del codes, pred
 
     def fused_plain_chunked(dim_ops, fmeasure, size):
         # the probe vectors (pk, and dpk with a delta) in chunks
@@ -889,6 +907,85 @@ def main() -> int:
         torch.cuda.empty_cache()
     if skew_launches["coalesce_window_mask"] != len(ZIPF_S):
         raise AssertionError("the skew path did not run the window kernel")
+
+    # -- 7b. probe_rows and coalesce_window_mask at their edge cases ----------
+    # last of the checks, so that every phase before allocates as it would
+    # without it (a table's timings depend on where its planes land)
+    def edge_cases():
+        """``probe_rows`` and ``coalesce_window_mask`` against their plain
+        versions where their indexing changes."""
+        gen = torch.Generator(device="cuda")
+        gen.manual_seed(args.seed + 2)
+
+        def dup_planes(n, w, mode):
+            """A table of ``n`` random keys where a fifth of the lanes after
+            the first repeat their bucket's first key (a probe sums them)."""
+            keys = torch.randperm(4 * n, generator=gen,
+                                  device="cuda")[:n].int()
+            tbl = build_table(keys, torch.randint(0, 1 << 20, (n,),
+                                                  generator=gen,
+                                                  device="cuda",
+                                                  dtype=torch.int32),
+                              num_buckets=suggest_num_buckets(n, w),
+                              bucket_width=w, hash_mode=mode)
+            tk = tbl.keys
+            dup = (torch.rand(tk.shape, generator=gen, device="cuda") < 0.2) \
+                & (tk[:, :1] != EMPTY_KEY)
+            dup[:, 0] = False
+            return (torch.where(dup, tk[:, :1].expand_as(tk), tk).contiguous(),
+                    tbl.values, keys)
+
+        in_smem = set()
+        for w in (4, 8, 16, 32, 64, 128):
+            for mode in ("identity", "fibonacci"):
+                for n in (500, 20_000):
+                    tk, tv, keys = dup_planes(n, w, mode)
+                    in_smem.add(2 * tk.numel() * 4 <= 96 << 10)
+                    probes = keys[torch.randint(0, n, ((1 << 20) + 7,),
+                                                generator=gen, device="cuda")]
+                    probes[::7] = -probes[::7] - 1
+                    probes[::11] = EMPTY_KEY
+                    for sl in (slice(0, 0), slice(0, 1), slice(0, 1283),
+                               slice(None), slice(1, None), slice(3, 1286)):
+                        hold("probe_rows", (tk, tv, probes[sl], mode), {},
+                             f"W={w} {mode}, {n} keys, probes[{sl.start}:"
+                             f"{sl.stop}]")
+        if in_smem != {True, False}:
+            raise AssertionError("the edge cases missed a probe_rows path")
+        log("[parity] probe_rows at W = 4..128, both hash modes, planes in "
+            "shared memory and not, duplicate keys in a bucket, EMPTY_KEY "
+            "probes, 0 / 1 / 1283 / 2^20+7 probes and unaligned slices: "
+            "bit-identical")
+        for window in (2, 8, 17, 32):
+            alphabet = torch.tensor([EMPTY_KEY, -1, *range(window)],
+                                    dtype=torch.int32, device="cuda")
+            for m in (0, 1, window - 2, 15, 16, 17, 511, 512, 513, 514, 515,
+                      3 * 512 + 7, (1 << 20) + 5):
+                base = alphabet[torch.randint(0, alphabet.numel(), (m + 3,),
+                                              generator=gen, device="cuda")]
+                for off in range(4):
+                    hold("coalesce_window_mask", (base[off:off + m],),
+                         {"window": window}, f"window {window}, {m} keys "
+                         f"from offset {off}")
+        log("[parity] coalesce_window_mask at windows 2, 8, 17, 32, every "
+            "length where its split changes, keys 0-3 past a 16-byte "
+            "boundary, EMPTY_KEY and NO_CODE among them: bit-identical")
+
+    edge_cases()
+
+    # the gathered schedule's entry on part's probes, hash and unpacking
+    # included, by the host clock
+    tbl = engine.indexes[TIMED_DIM].table
+    codes = encode(engine.indexes[TIMED_DIM].dictionary,
+                   fact_cols[FACT_FK[TIMED_DIM]])
+    probe_table(tbl, codes)
+    secs = [timed_call(lambda: probe_table(tbl, codes))
+            for _ in range(OPS_REPS)]
+    log(f"[ops] probe_table on {TIMED_DIM} ({n_fact} probes, table "
+        f"{tuple(tbl.keys.shape)}; host clock ending in synchronize): ms "
+        f"per call {json.dumps([round(x * 1e3, 4) for x in secs])}, min "
+        f"{min(secs) * 1e3:.4f}")
+    del tbl, codes
 
     # -- 8. numbers ---------------------------------------------------------------
     log(f"[memory] resident before the main path (tables, indexes): "

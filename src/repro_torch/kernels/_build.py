@@ -31,8 +31,8 @@ _P, _I64, _I32 = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int32
 # library -> {C function: argtypes}
 SIGNATURES = {
     "bucket_probe": {
-        # tk, tv, keys, bids, out, m, w, stream
-        "probe_rows_launch": (_P, _P, _P, _P, _P, _I64, _I32, _P),
+        # tk, tv, keys, out, m, num_buckets, w, fib, stream
+        "probe_rows_launch": (_P, _P, _P, _P, _I64, _I64, _I32, _I32, _P),
         # plane, num_buckets, w, positive, slot_bits, bucket_bits, stream
         "pack_bits_launch": (_P, _I64, _I32, _I32, _P, _P, _P),
         # tk, tv, slot_bits, bucket_bits, keys, out, m, num_buckets, w,

@@ -3,21 +3,21 @@
 Each replaces the kernel of the same name in ``repro/kernels/
 bucket_probe.py``: ``probe_rows``, ``probe_filter_rows``,
 ``probe_filter_rows_delta`` and ``bucket_probe_stream``.  All take the
-``(B, W)`` table planes and gather each bucket row inside the kernel, so
-the ``(m, W)`` rows the TPU kernels consume never reach device memory.
-``probe_rows`` takes per-probe bucket ids; ``bucket_probe_stream`` and the
-two filter kernels take the table's hash mode instead (the bucket count is
-the planes' first dimension) and hash each key themselves.  The filter
-kernels read the predicate plane as bits per slot and per bucket
-(``pack_bits``).  ``bucket_probe_stream`` computes what ``probe_rows``
-computes, through a ring of asynchronous key-row copies in shared memory
-(or, for a table whose planes fit there, from shared memory).
+``(B, W)`` table planes and the table's hash mode (the bucket count is the
+planes' first dimension), hash each key and gather each bucket row inside
+the kernel, so neither a bucket-id vector nor the ``(m, W)`` rows the TPU
+kernels consume ever reach device memory.  The filter kernels read the
+predicate plane as bits per slot and per bucket (``pack_bits``).
+``probe_rows`` and ``bucket_probe_stream`` compute the same function:
+``probe_rows`` one probe a thread, its key row and then the matching
+lane's value read straight into registers, ``bucket_probe_stream`` through
+a ring of asynchronous key-row copies in shared memory; both probe a table
+whose planes fit shared memory from there.
 
 Dispatch: a CUDA tensor launches the kernel (and raises if it cannot be
 built or launched); a CPU tensor takes the plain version, which hashes
-with ``hash_bucket`` where the kernel hashes, gathers
-``table[bucket_ids]`` and applies ``kernels/ref.py``.  ``launches`` on each
-wrapper counts kernel launches.
+with ``hash_bucket``, gathers ``table[bucket_ids]`` and applies
+``kernels/ref.py``.  ``launches`` on each wrapper counts kernel launches.
 """
 from __future__ import annotations
 
@@ -60,17 +60,16 @@ def _check_cuda(what: str, planes, w: int) -> None:
         raise ValueError(f"{what}: table planes must be 16-byte aligned")
 
 
-def probe_rows_plain(table_keys, table_vals, probe_keys, bucket_ids):
-    """The plain version of ``probe_rows``: gather, then ``ref``."""
-    return ref.bucket_probe_ref(table_keys, table_vals, probe_keys,
-                                bucket_ids)
+def probe_rows_plain(table_keys, table_vals, probe_keys, hash_mode):
+    """The plain version of ``probe_rows``: hash, gather, ``ref``."""
+    b = hash_bucket(probe_keys, table_keys.shape[0], hash_mode)
+    return ref.bucket_probe_ref(table_keys, table_vals, probe_keys, b)
 
 
 def bucket_probe_stream_plain(table_keys, table_vals, probe_keys,
                               hash_mode):
-    """The plain version of ``bucket_probe_stream``: hash, gather, ``ref``."""
-    b = hash_bucket(probe_keys, table_keys.shape[0], hash_mode)
-    return ref.bucket_probe_ref(table_keys, table_vals, probe_keys, b)
+    """The plain version of ``bucket_probe_stream``: ``probe_rows_plain``."""
+    return probe_rows_plain(table_keys, table_vals, probe_keys, hash_mode)
 
 
 def _hash_code(hash_mode: str) -> int:
@@ -155,16 +154,18 @@ def _stream() -> int:
 
 
 def probe_rows(table_keys: torch.Tensor, table_vals: torch.Tensor,
-               probe_keys: torch.Tensor,
-               bucket_ids: torch.Tensor) -> torch.Tensor:
-    """(B, W) x2, (m,) keys, (m,) bucket ids -> (m,) packed value words.
+               probe_keys: torch.Tensor, hash_mode: str) -> torch.Tensor:
+    """(B, W) x2, (m,) keys -> (m,) packed value words: the sum of the
+    matching lanes' values, NULL_WORD on a miss or an EMPTY_KEY probe.
 
-    ``bucket_ids`` must come from ``hash_bucket`` over ``B`` buckets.
+    The kernel hashes each key into the ``B`` buckets itself (``hash_mode``
+    is the table's).
     """
     planes = (table_keys, table_vals)
-    m, w = _check_operands("probe_rows", planes, (probe_keys, bucket_ids))
+    m, w = _check_operands("probe_rows", planes, (probe_keys,))
+    fib = _hash_code(hash_mode)
     if probe_keys.device.type == "cpu":
-        return probe_rows_plain(*planes, probe_keys, bucket_ids)
+        return probe_rows_plain(*planes, probe_keys, hash_mode)
     _check_cuda("probe_rows", planes, w)
     out = torch.empty(m, dtype=torch.int32, device=probe_keys.device)
     if m == 0:
@@ -172,7 +173,7 @@ def probe_rows(table_keys: torch.Tensor, table_vals: torch.Tensor,
     lib = _build.load("bucket_probe")
     _build.check(lib.probe_rows_launch(
         table_keys.data_ptr(), table_vals.data_ptr(), probe_keys.data_ptr(),
-        bucket_ids.data_ptr(), out.data_ptr(), m, w, _stream()),
+        out.data_ptr(), m, table_keys.shape[0], w, fib, _stream()),
         "probe_rows")
     probe_rows.launches += 1
     return out

@@ -12,11 +12,24 @@
 // What bounds them: the rate of random reads (32-byte sectors from L2, and
 // the L1's line lookups), not the streaming rate.  Per probe a thread
 // reads its key (coalesced), then rows of the table at a random bucket,
-// and writes one word.
+// and writes one word.  All four hash the key themselves (the table's
+// bucket count and hash mode travel as scalars): no bucket-id vector is
+// written or read.
 //
-// probe_rows takes per-probe bucket ids; one thread per probe reads the
-// W-lane key row (W=8: one sector, two int4 loads) and, for the int4 group
-// that holds a match, the value row.
+// probe_rows: where both planes fit kTableSmemBudget (date at SF10: 2 x 32
+// KiB), the stream's table kernel (below) at kTableProbes probes a thread
+// a step (their key loads in flight together: one a thread left the key
+// stream short of loads in flight) with the value read as one 4-byte lane
+// (lane_word: fewer shared-memory wavefronts than an int4 group); date's
+// 60M probes 0.43 to 0.27 ms.  Larger tables take rows_kernel, one probe a
+// thread: the W-lane key row (W=8: one sector, two int4 loads issued back
+// to back), then the value of the matching lane as one 4-byte load.  Two
+// random sectors a hit, and their rate from L2 sets the time: two, four or
+// eight probes a thread with every key row issued before the first compare,
+// the next row prefetched in registers (persistent), the ring, loads
+// through L2 only or L1 given the SM's whole memory all measured the same
+// or slower (tools/stream_designs.cu, PERF.md).  Dropping the 240 MB
+// bucket-id vector took the bytes from 754 to 514 MB at part.
 //
 // probe_filter_rows and probe_filter_rows_delta hash the key themselves
 // (the table's bucket count and hash mode travel as scalars, no bucket-id
@@ -120,32 +133,6 @@ struct DeltaArgs {
   Hash h;                // the delta's hash
   int32_t dw;
 };
-
-template <int W>
-__global__ void __launch_bounds__(kThreads)
-probe_kernel(const int32_t* __restrict__ tk, const int32_t* __restrict__ tv,
-             const int32_t* __restrict__ keys,
-             const int32_t* __restrict__ bids, int32_t* __restrict__ out,
-             int64_t m) {
-  const int64_t i = static_cast<int64_t>(blockIdx.x) * kThreads + threadIdx.x;
-  if (i >= m) return;
-  const int32_t k = keys[i];
-  const int64_t row = static_cast<int64_t>(bids[i]) * W;
-  const int4* rk = reinterpret_cast<const int4*>(tk + row);
-  const int4* rv = reinterpret_cast<const int4*>(tv + row);
-  bool any = false;
-  uint32_t word = 0;
-#pragma unroll
-  for (int j = 0; j < W / 4; ++j) {
-    const int4 kk = __ldg(rk + j);
-    const bool m0 = kk.x == k, m1 = kk.y == k, m2 = kk.z == k, m3 = kk.w == k;
-    if (m0 | m1 | m2 | m3) {
-      any = true;
-      word += lane_sum(__ldg(rv + j), m0, m1, m2, m3);
-    }
-  }
-  out[i] = any && k != kEmpty ? static_cast<int32_t>(word) : kNull;
-}
 
 // The slot bits and bucket bits of a (B, W) plane, one thread per bucket:
 // slot bit b W + j (bit (b W + j) % 32 of word (b W + j) / 32) is the test
@@ -431,6 +418,8 @@ constexpr int kRingBlocksPerSM = 4;
 // both planes of a table probed from shared memory, two blocks per SM
 constexpr int kTableThreads = 1024;
 constexpr size_t kTableSmemBudget = 96 << 10;
+// probes a thread a step of the table kernel in probe_rows
+constexpr int kTableProbes = 4;
 
 // 16 bytes global -> shared, asynchronously: kL1 caches them in L1 (.ca),
 // else only in L2 (.cg)
@@ -477,6 +466,39 @@ __device__ __forceinline__ int32_t row_word(const int4* row, const int4* rv,
     }
   }
   return any && k != kEmpty ? static_cast<int32_t>(word) : kNull;
+}
+
+// The word of key k against a W-lane key row and its value row, both in
+// global memory (kGlobal, read through L1) or in shared memory: the key
+// row's matching lanes as bits, then one 4-byte value read for each (one
+// unless the key repeats in the bucket).  An EMPTY_KEY probe matches the
+// empty slots, but misses.
+template <int W, bool kGlobal>
+__device__ __forceinline__ int32_t lane_word(const int4* rk, const int32_t* rv,
+                                             int32_t k) {
+  constexpr int NW = W > 32 ? W / 32 : 1;  // match words
+  constexpr int LW = W < 32 ? W : 32;      // lanes per match word
+  uint32_t match[NW];
+#pragma unroll
+  for (int c = 0; c < NW; ++c) {
+    match[c] = 0;
+#pragma unroll
+    for (int j = 0; j < LW / 4; ++j) {
+      const int4* q = rk + c * (LW / 4) + j;
+      match[c] |= match4(kGlobal ? __ldg(q) : *q, k) << (4 * j);
+    }
+  }
+  uint32_t any = 0, word = 0;
+#pragma unroll
+  for (int c = 0; c < NW; ++c) {
+    const uint32_t mc = k != kEmpty ? match[c] : 0u;
+    any |= mc;
+    for (uint32_t mm = mc; mm != 0; mm &= mm - 1) {
+      const int32_t* q = rv + 32 * c + __ffs(mm) - 1;
+      word += static_cast<uint32_t>(kGlobal ? __ldg(q) : *q);
+    }
+  }
+  return any != 0 ? static_cast<int32_t>(word) : kNull;
 }
 
 // threads of a ring block: 256 up to W = 16, fewer above so that the ring
@@ -532,14 +554,18 @@ stream_ring_kernel(const int32_t* __restrict__ tk,
 }
 
 // Both planes in shared memory ([B][W / 4] int4 keys, then values), copied
-// once per block; then a grid stride over the probes.
-template <int W>
+// once per block; then a grid stride over the probes, P probes a thread a
+// step (probe i0 + p * kTableThreads, so each key load is coalesced across
+// the warp), all P keys loaded before the first is compared: P streamed
+// loads in flight a thread.  kLane: the value read as lane_word reads it
+// (4 bytes of the matching lane, where row_word reads the matching int4
+// group: fewer shared-memory wavefronts a warp).  bucket_probe_stream takes
+// P = 1 and the group, probe_rows kTableProbes and the lane.
+template <int W, int P, bool kLane>
 __global__ void __launch_bounds__(kTableThreads, 2)
-stream_table_kernel(const int32_t* __restrict__ tk,
-                    const int32_t* __restrict__ tv,
-                    const int32_t* __restrict__ keys,
-                    int32_t* __restrict__ out, int64_t m, const Hash h,
-                    int64_t num_buckets) {
+table_kernel(const int32_t* __restrict__ tk, const int32_t* __restrict__ tv,
+             const int32_t* __restrict__ keys, int32_t* __restrict__ out,
+             int64_t m, const Hash h, int64_t num_buckets) {
   constexpr int G = W / 4;
   extern __shared__ int4 tab[];
   const int64_t n4 = num_buckets * G;
@@ -552,14 +578,49 @@ stream_table_kernel(const int32_t* __restrict__ tk,
   cp_async_commit();
   cp_async_wait<0>();
   __syncthreads();
-  const int64_t stride = static_cast<int64_t>(gridDim.x) * kTableThreads;
-  for (int64_t i = static_cast<int64_t>(blockIdx.x) * kTableThreads +
-                   threadIdx.x;
-       i < m; i += stride) {
-    const int32_t k = __ldcs(keys + i);
-    const int64_t row = static_cast<int64_t>(bucket_of(k, h)) * G;
-    __stcs(out + i, row_word<G, 1>(tab + row, tab + n4 + row, k));
+  const int64_t stride = static_cast<int64_t>(gridDim.x) * kTableThreads * P;
+  for (int64_t i0 = static_cast<int64_t>(blockIdx.x) * kTableThreads * P +
+                    threadIdx.x;
+       i0 < m; i0 += stride) {
+    int32_t k[P];
+#pragma unroll
+    for (int p = 0; p < P; ++p) {
+      const int64_t i = i0 + p * kTableThreads;
+      k[p] = i < m ? __ldcs(keys + i) : kEmpty;
+    }
+#pragma unroll
+    for (int p = 0; p < P; ++p) {
+      const int64_t i = i0 + p * kTableThreads;
+      if (i < m) {
+        const int64_t row = static_cast<int64_t>(bucket_of(k[p], h)) * G;
+        __stcs(out + i, kLane
+            ? lane_word<W, false>(tab + row,
+                                  reinterpret_cast<const int32_t*>(
+                                      tab + n4 + row), k[p])
+            : row_word<G, 1>(tab + row, tab + n4 + row, k[p]));
+      }
+    }
   }
+}
+
+// probe_rows on a table whose planes do not fit shared memory: one probe a
+// thread.  Its key row (W / 4 int4 loads, issued back to back), then the
+// value of the first lane that holds the key as one 4-byte load, and of any
+// further one (a duplicate key) after it: two random sectors a hit, the
+// least a probe of two planes can read.  Those sectors' rate from L2 bounds
+// it: more probes a thread, a ring or the next row held in registers moved
+// nothing (tools/stream_designs.cu).
+template <int W>
+__global__ void __launch_bounds__(kThreads)
+rows_kernel(const int32_t* __restrict__ tk, const int32_t* __restrict__ tv,
+            const int32_t* __restrict__ keys, int32_t* __restrict__ out,
+            int64_t m, const Hash h) {
+  const int64_t i = static_cast<int64_t>(blockIdx.x) * kThreads + threadIdx.x;
+  if (i >= m) return;
+  const int32_t k = __ldcs(keys + i);
+  const int64_t slot = static_cast<int64_t>(bucket_of(k, h)) * W;
+  __stcs(out + i, lane_word<W, true>(reinterpret_cast<const int4*>(tk + slot),
+                                     tv + slot, k));
 }
 
 // A persistent grid of `kernel`: as many blocks as fit on the card (at most
@@ -602,14 +663,15 @@ int launch_ring(const int32_t* k, const int32_t* v, const int32_t* q,
   return cudaGetLastError();
 }
 
-template <int W>
+template <int W, int P, bool kLane>
 int launch_table(const int32_t* k, const int32_t* v, const int32_t* q,
                  int32_t* o, int64_t m, const Hash h, int64_t num_buckets,
                  cudaStream_t s) {
   const size_t smem = 2 * sizeof(int32_t) * W * num_buckets;
-  const auto kernel = stream_table_kernel<W>;
+  const auto kernel = table_kernel<W, P, kLane>;
   unsigned grid = 0;
-  const int status = persistent_grid(kernel, kTableThreads, smem, m, &grid);
+  const int status = persistent_grid(kernel, kTableThreads, smem,
+                                     (m + P - 1) / P, &grid);
   if (status != cudaSuccess) return status;
   kernel<<<grid, kTableThreads, smem, s>>>(k, v, q, o, m, h, num_buckets);
   return cudaGetLastError();
@@ -621,35 +683,49 @@ int launch_stream(const int32_t* k, const int32_t* v, const int32_t* q,
                   cudaStream_t s) {
   const Hash h = make_hash(num_buckets, fib);
   if (2 * sizeof(int32_t) * W * num_buckets <= kTableSmemBudget) {
-    return launch_table<W>(k, v, q, o, m, h, num_buckets, s);
+    return launch_table<W, 1, false>(k, v, q, o, m, h, num_buckets, s);
   }
   return launch_ring<W, kRingStages, kRingL1>(k, v, q, o, m, h, s,
                                              kRingBlocksPerSM);
 }
 
+// probe_rows' dispatch: planes that fit kTableSmemBudget (date: 2 x 32 KiB)
+// are probed from shared memory, larger ones by rows_kernel.
+template <int W>
+int launch_rows(const int32_t* k, const int32_t* v, const int32_t* q,
+                int32_t* o, int64_t m, int64_t num_buckets, int32_t fib,
+                cudaStream_t s) {
+  const Hash h = make_hash(num_buckets, fib);
+  if (2 * sizeof(int32_t) * W * num_buckets <= kTableSmemBudget) {
+    return launch_table<W, kTableProbes, true>(k, v, q, o, m, h, num_buckets,
+                                               s);
+  }
+  rows_kernel<W><<<grid_for(m), kThreads, 0, s>>>(k, v, q, o, m, h);
+  return cudaGetLastError();
+}
+
 }  // namespace
 
+// fib: the table's hash mode, 0 identity, 1 Fibonacci.
 extern "C" int probe_rows_launch(const void* tk, const void* tv,
-                                 const void* keys, const void* bids, void* out,
-                                 int64_t m, int32_t w, void* stream) {
+                                 const void* keys, void* out, int64_t m,
+                                 int64_t num_buckets, int32_t w, int32_t fib,
+                                 void* stream) {
   if (m == 0) return cudaSuccess;
-  const unsigned grid = grid_for(m);
-  const auto s = static_cast<cudaStream_t>(stream);
   const auto* k = static_cast<const int32_t*>(tk);
   const auto* v = static_cast<const int32_t*>(tv);
   const auto* q = static_cast<const int32_t*>(keys);
-  const auto* b = static_cast<const int32_t*>(bids);
   auto* o = static_cast<int32_t*>(out);
+  const auto s = static_cast<cudaStream_t>(stream);
   switch (w) {
-    case 4: probe_kernel<4><<<grid, kThreads, 0, s>>>(k, v, q, b, o, m); break;
-    case 8: probe_kernel<8><<<grid, kThreads, 0, s>>>(k, v, q, b, o, m); break;
-    case 16: probe_kernel<16><<<grid, kThreads, 0, s>>>(k, v, q, b, o, m); break;
-    case 32: probe_kernel<32><<<grid, kThreads, 0, s>>>(k, v, q, b, o, m); break;
-    case 64: probe_kernel<64><<<grid, kThreads, 0, s>>>(k, v, q, b, o, m); break;
-    case 128: probe_kernel<128><<<grid, kThreads, 0, s>>>(k, v, q, b, o, m); break;
+    case 4: return launch_rows<4>(k, v, q, o, m, num_buckets, fib, s);
+    case 8: return launch_rows<8>(k, v, q, o, m, num_buckets, fib, s);
+    case 16: return launch_rows<16>(k, v, q, o, m, num_buckets, fib, s);
+    case 32: return launch_rows<32>(k, v, q, o, m, num_buckets, fib, s);
+    case 64: return launch_rows<64>(k, v, q, o, m, num_buckets, fib, s);
+    case 128: return launch_rows<128>(k, v, q, o, m, num_buckets, fib, s);
     default: return cudaErrorInvalidValue;
   }
-  return cudaGetLastError();
 }
 
 // A (B, W) int32 plane -> its slot bits (max(1, B W / 32) words) and its

@@ -1,20 +1,18 @@
 """Probe entry points over the CUDA kernels, and the kernel registry.
 
 ``probe_table`` / ``probe_table_filtered`` / ``probe_table_filtered_delta``
-are what ``engine/join.py`` calls on the ``"cuda"`` kernel.  On the
-gathered schedule ``probe_table`` hashes the probe keys (a plain
-elementwise op, as in the JAX package) and hands the table planes and
-bucket ids to ``probe_rows``, which gathers the bucket rows itself; the
-stream schedule and the two filtered entries hand over the table's hash
-mode, and their kernels hash each key themselves.
+are what ``engine/join.py`` calls on the ``"cuda"`` kernel.  Each hands the
+table planes and the table's hash mode to its kernel (``probe_rows`` on the
+gathered schedule, ``bucket_probe_stream`` on the stream schedule, the
+filter kernels), which hashes each key and gathers each bucket row itself:
+no bucket-id vector is made.
 
 ``KERNEL_REGISTRY`` lists every hand-written kernel with its plain version,
 the TPU kernel it replaces and deterministic operand cases.  The cases are
 the JAX registry's (``repro/kernels/ops.py``), drawn from the same numpy
 seeds and built with the port's own ``core/delta.py``, in the port's
-calling convention: table planes plus bucket ids (``probe_rows``) or the
-hash mode (the others) instead of gathered rows.
-``coalesce_window_mask`` adds a Zipf stream to the reference's case.
+calling convention: table planes plus the hash mode instead of gathered
+rows.  ``coalesce_window_mask`` adds a Zipf stream to the reference's case.
 """
 from __future__ import annotations
 
@@ -27,7 +25,7 @@ import torch
 from repro_torch.core.delta import (TOMBSTONE, DeltaTable, delete_batch,
                                     empty_delta, upsert_batch)
 from repro_torch.core.hash_table import (EMPTY_KEY, HASH_FIBONACCI,
-                                         JSPIMTable, build_table, hash_bucket)
+                                         JSPIMTable, build_table)
 from repro_torch.core.lookup import NULL_WORD, ProbeResult, unpack_words
 from repro_torch.core.skew import zipf_sample
 from repro_torch.kernels.bucket_probe import (
@@ -43,16 +41,15 @@ def probe_table(table: JSPIMTable, probe_keys: torch.Tensor, *,
                 schedule: str = "gathered") -> ProbeResult:
     """Associative search through the probe kernels.
 
-    ``schedule="gathered"`` runs ``probe_rows`` (one thread per probe, on
-    bucket ids hashed here); ``"stream"`` runs ``bucket_probe_stream`` (a
-    ring of asynchronous key-row copies; it hashes the keys itself).  Both
-    give the same words.
+    ``schedule="gathered"`` runs ``probe_rows`` (one probe a thread, the
+    key row and the matching lane's value read into registers);
+    ``"stream"`` runs ``bucket_probe_stream`` (a ring of asynchronous
+    key-row copies).  Both hash the keys themselves and give the same
+    words.
     """
     keys = probe_keys.to(torch.int32)
     if schedule == "gathered":
-        words = probe_rows(table.keys, table.values, keys,
-                           hash_bucket(keys, table.num_buckets,
-                                       table.hash_mode))
+        words = probe_rows(table.keys, table.values, keys, table.hash_mode)
     elif schedule == "stream":
         words = bucket_probe_stream(table.keys, table.values, keys,
                                     table.hash_mode)
@@ -170,23 +167,17 @@ def _probe_cases(device):
     pk = rng.choice(keys, m).astype(np.int32)
     pk[::7] = 10_001  # guaranteed misses (not a multiple of 3)
     pk[5] = EMPTY_KEY
-    pk = _t(pk, device)
-    return table, pk, hash_bucket(pk, table.num_buckets, table.hash_mode)
+    return table, _t(pk, device)
 
 
 def _probe_rows_cases(device="cpu"):
-    table, pk, bids = _probe_cases(device)
-    return [("hit_miss_mix", (table.keys, table.values, pk, bids), {})]
-
-
-def _stream_cases(device="cpu"):
-    table, pk, _ = _probe_cases(device)
+    table, pk = _probe_cases(device)
     return [("hit_miss_mix", (table.keys, table.values, pk, table.hash_mode),
              {})]
 
 
 def _filter_cases(device="cpu"):
-    table, pk, _ = _probe_cases(device)
+    table, pk = _probe_cases(device)
     mask = torch.as_tensor(np.arange(64) % 3 == 0, device=device)
     pred = slot_predicate(table, mask)
     return [("pred_mix", (table.keys, table.values, pred, pk,
@@ -205,7 +196,7 @@ def _delta_states(device):
 
 
 def _filter_delta_cases(device="cpu"):
-    table, pk, _ = _probe_cases(device)
+    table, pk = _probe_cases(device)
     mask = torch.as_tensor(np.arange(64) % 3 == 0, device=device)
     pred = slot_predicate(table, mask)
     raw = pk  # the case table holds raw keys: raw key == probe key
@@ -219,7 +210,7 @@ def _filter_delta_cases(device="cpu"):
 
 
 def _fused_query_cases(device="cpu"):
-    table, pk, _ = _probe_cases(device)
+    table, pk = _probe_cases(device)
     rng = np.random.default_rng(11)
     n_rows, card = 64, 5
     mask = torch.as_tensor(np.arange(n_rows) % 3 == 0, device=device)
@@ -258,7 +249,8 @@ register_kernel(KernelOp(
     "src/repro/kernels/bucket_probe.py:79"))
 register_kernel(KernelOp(
     "bucket_probe_stream", bucket_probe_stream, bucket_probe_stream_plain,
-    ("cuda",), _stream_cases, "src/repro_torch/kernels/csrc/bucket_probe.cu",
+    ("cuda",), _probe_rows_cases,
+    "src/repro_torch/kernels/csrc/bucket_probe.cu",
     "src/repro/kernels/bucket_probe.py:140"))
 register_kernel(KernelOp(
     "probe_filter_rows", probe_filter_rows, probe_filter_rows_plain,

@@ -123,6 +123,100 @@ def test_window_mask_stream_start_is_empty(keys, window, want):
     assert got.int().tolist() == want
 
 
+SPAN = 512  # keys of a warp of the window kernel: 4 chunks x 32 lanes x 4
+
+
+def _window_kernel_numpy(keys: np.ndarray, window: int,
+                         offset: int) -> np.ndarray:
+    """``csrc/coalesce_window.cu`` transliterated, lane by lane: the mask
+    it writes for ``keys`` that start ``offset`` keys (4 bytes each) past a
+    16-byte boundary.  The launcher's split (a scalar head until the keys
+    align, whole spans of 512 keys a warp, a scalar tail), the dispatch
+    (window 8 exact, halo capacity 16 or 31 otherwise), each lane's four
+    keys in each of four chunks, its halo from the lanes before it
+    (``__shfl_sync`` from lane ``(lane - dist) & 31``, which hands over its
+    previous chunk's key where it is at the warp's end), the first chunk's
+    low lanes reading global memory, the first span's check against
+    positions before 0, and the scalar threads.  Every mask byte must be
+    written exactly once."""
+    m = keys.shape[0]
+    out = np.zeros(m, np.uint8)
+    writes = np.zeros(m, np.int64)
+    if m == 0:  # the launcher returns before any launch
+        return out
+    halo = window - 1
+    h, exact = (7, True) if window == 8 else \
+        (16, False) if halo <= 16 else (31, False)
+    head = min(m, (16 - 4 * offset) % 16 // 4)
+    spans = (m - head) // SPAN
+    n_scalar = m - spans * SPAN
+    n_threads = -(-max(32 * spans, n_scalar) // 256) * 256  # whole blocks
+    for w in range(spans):
+        span = head + w * SPAN
+        lane = np.arange(32)
+        k = keys[span:span + SPAN].reshape(4, 32, 4)  # [chunk, lane, key]
+        for q in range(4):
+            base = span + 128 * q + 4 * lane
+            a = np.zeros((32, h), np.int64)
+            for j in range(h):
+                back = h - j
+                dist = (back + 3) // 4
+                r = 4 * dist - back
+                mine = np.where((q > 0) & (lane >= 32 - dist),
+                                k[q - 1, :, r] if q > 0 else 0, k[q, :, r])
+                a[:, j] = mine[(lane - dist) & 31]
+                if q == 0:
+                    low = lane < dist
+                    pos = base - back
+                    ok = low & (pos >= 0) & (exact or back <= halo)
+                    a[ok, j] = keys[pos[ok]]
+                    a[low & ~ok, j] = 0
+            comb = np.concatenate([a, k[q]], axis=1)
+            for p in range(4):
+                hit = np.zeros(32, bool)
+                for d in range(1, h + 1):
+                    c = h + p - d
+                    ok = comb[:, c] == k[q, :, p]
+                    if not exact:
+                        ok &= d <= halo
+                    if span < h:
+                        ok &= base + p - d >= 0
+                    hit |= ok
+                out[base + p] = hit
+                writes[base + p] += 1
+    for t in range(min(n_threads, n_scalar)):
+        i = t if t < head else head + spans * SPAN + t - head
+        reach = min(i, halo)
+        out[i] = any(keys[i - d] == keys[i] for d in range(1, reach + 1))
+        writes[i] += 1
+    assert (writes == 1).all(), "a mask byte written other than once"
+    return out
+
+
+@pytest.mark.parametrize("window", range(2, 33))
+def test_window_kernel_indexing_matches_plain(window):
+    """The transliteration against the plain version at every length where
+    the split changes (shorter than the halo, a head alone, a span less or
+    more one key, several spans and a tail) and at every alignment of the
+    first key, on streams that hold EMPTY_KEY and NO_CODE among a few
+    keys, so that repeats fall at every distance."""
+    rng = np.random.default_rng(window)
+    lengths = (0, 1, window - 2, 15, 16, 17, 511, 512, 513, 514, 515,
+               3 * 512 + 7)
+    alphabet = np.array([-0x7FFFFFFF, -1] + list(range(window)), np.int32)
+    hits = 0
+    for m in lengths:
+        for offset in range(4):
+            keys = alphabet[rng.integers(0, alphabet.size, m)]
+            got = _window_kernel_numpy(keys, window, offset)
+            want = tdedup.windowed_coalesce_mask(torch.as_tensor(keys),
+                                                 window)
+            _eq(torch.as_tensor(got.astype(bool)), want,
+                f"window {window} m={m} offset {offset}")
+            hits += int(got.sum())
+    assert hits > 0
+
+
 @pytest.mark.parametrize("window", [1, 33])
 def test_window_mask_rejects_unsupported_windows(window):
     with pytest.raises(ValueError, match="window"):

@@ -82,6 +82,11 @@ def test_registry_case_matches_pallas_interpret(name, i):
         _eq((tk, tv, pk), jargs[:3], "operands")
         _eq(_t(jht.hash_bucket(jnp.asarray(pk.numpy()), tk.shape[0], mode)),
             jargs[3], "bucket ids")
+    elif name == "probe_rows":
+        tk, tv, pk, mode = pargs
+        b = _t(jht.hash_bucket(jnp.asarray(pk.numpy()), tk.shape[0],
+                               mode)).long()
+        _eq((pk, tk[b], tv[b]), jargs, "gathered rows")
     elif name == "coalesce_window_mask":
         _eq(pargs, jargs, "operands")  # the same operands in both
     elif name == "probe_filter_rows_delta":
@@ -94,11 +99,6 @@ def test_registry_case_matches_pallas_interpret(name, i):
         tk, tv, tp, pk, mode = pargs
         b = tht.hash_bucket(pk, tk.shape[0], mode).long()
         _eq((pk, tk[b], tv[b], tp[b]), jargs, "gathered rows")
-    else:
-        b = pargs[-1].long()
-        _eq(pargs[-2], jargs[0], "probe keys")
-        for plane, rows in zip(pargs[:-2], jargs[1:]):
-            _eq(plane[b], rows, "gathered rows")
     got = tops.KERNEL_REGISTRY[name].fn(*pargs, **pkw)
     want = jops.KERNEL_REGISTRY[name].fn(*jargs, **jkw, interpret=True)
     _eq(got, want)
@@ -155,14 +155,14 @@ def _sweep_cases(shapes, modes):
     [("", (tht.HASH_IDENTITY,)), ("fibonacci", (tht.HASH_FIBONACCI,))]))
 def test_probe_kernels_shape_sweep(width, m, hash_mode):
     """m not a multiple of the Pallas block (64 here); negative probe keys
-    and EMPTY_KEY among them.  ``probe_filter_rows`` hashes the keys
-    itself; the Pallas kernel gets rows gathered by the reference's hash."""
+    and EMPTY_KEY among them.  ``probe_rows`` and ``probe_filter_rows``
+    hash the keys themselves; the Pallas kernels get rows gathered by the
+    reference's hash."""
     tt, jt = _sweep_table(width, hash_mode=hash_mode)
     pk = _sweep_probes(m, m)
     pk[3::13] = -pk[3::13] - 1
-    bids = tht.hash_bucket(_t(pk), tt.num_buckets, tt.hash_mode)
     jb = jht.hash_bucket(jnp.asarray(pk), jt.num_buckets, jt.hash_mode)
-    got = probe_rows(tt.keys, tt.values, _t(pk), bids)
+    got = probe_rows(tt.keys, tt.values, _t(pk), hash_mode)
     want = jbp.probe_rows(jnp.asarray(pk), jt.keys[jb], jt.values[jb],
                           block_pb=64, interpret=True)
     _eq(got, want)
@@ -174,6 +174,63 @@ def test_probe_kernels_shape_sweep(width, m, hash_mode):
                                  jnp.asarray(pred.numpy())[jb], block_pb=64,
                                  interpret=True)
     _eq(got, want)
+
+
+def _dup_table(width, hash_mode, seed):
+    """A sweep table's planes (numpy) where a third of the lanes after the
+    first repeat their bucket's first key: a probe sums every lane that
+    holds its key."""
+    tt, _ = _sweep_table(width, hash_mode=hash_mode, seed=seed)
+    tk = tt.keys.numpy()
+    rng = np.random.default_rng(seed)
+    dup = (rng.random(tk.shape) < 1 / 3) & (tk[:, :1] != tht.EMPTY_KEY)
+    dup[:, 0] = False
+    return np.where(dup, tk[:, :1], tk).astype(np.int32), tt.values.numpy()
+
+
+@pytest.mark.parametrize("width,hash_mode", [
+    (4, tht.HASH_FIBONACCI), (8, tht.HASH_IDENTITY), (16, tht.HASH_FIBONACCI),
+    (32, tht.HASH_IDENTITY), (128, tht.HASH_FIBONACCI)])
+@pytest.mark.parametrize("case", ["empty_key_probes", "duplicate_keys",
+                                  "m0", "m_not_block_multiple"])
+def test_probe_rows_edge_cases(case, width, hash_mode):
+    """``probe_rows(keys, vals, probe_keys, hash_mode)`` against the Pallas
+    kernel fed rows gathered at the reference's ``hash_bucket`` ids: half
+    the probes EMPTY_KEY (which the table's empty slots hold: still a
+    miss), duplicate keys in a bucket (their values summed), no probes,
+    and 1,283 probes (not a multiple of the rows kernel's 256-probe
+    blocks or of the table kernel's 4,096 probes a step).  The bucket
+    planes hold keys 0..799; a fifth of the probes are drawn from
+    -900..899."""
+    seed = width + len(case)
+    if case == "duplicate_keys":
+        tk, tv = _dup_table(width, hash_mode, seed)
+    else:
+        tt, _ = _sweep_table(width, hash_mode=hash_mode, seed=seed)
+        tk, tv = tt.keys.numpy(), tt.values.numpy()
+    rng = np.random.default_rng(seed)
+    m = {"m0": 0, "m_not_block_multiple": 1283}.get(case, 300)
+    live = tk[tk != tht.EMPTY_KEY]
+    pk = rng.choice(live, m).astype(np.int32)
+    pk[::5] = rng.integers(-900, 900, len(pk[::5]))
+    if case == "empty_key_probes":
+        pk[::2] = tht.EMPTY_KEY
+    got = probe_rows(_t(tk), _t(tv), _t(pk), hash_mode)
+    jb = np.asarray(jht.hash_bucket(jnp.asarray(pk), tk.shape[0], hash_mode))
+    jops_ = (jnp.asarray(pk), jnp.asarray(tk[jb]), jnp.asarray(tv[jb]))
+    # the Pallas kernel's interpret mode refuses m = 0 (a block of 8 rows
+    # sliced out of 0): there its oracle
+    want = jref.probe_rows_ref(*jops_) if m == 0 else \
+        jbp.probe_rows(*jops_, block_pb=64, interpret=True)
+    assert got.shape == (m,) and got.dtype == torch.int32
+    _eq(got, want)
+    if case == "empty_key_probes":
+        assert (got.numpy()[::2] == jref.NULL_WORD).all()
+    elif case == "duplicate_keys":
+        rows = tk[jb] == pk[:, None]
+        assert (rows.sum(axis=1) > 1).any()  # some probe sums two lanes
+    if m:
+        assert (got.numpy() != jref.NULL_WORD).any()
 
 
 @pytest.mark.parametrize("m,width,hash_mode", [
@@ -197,8 +254,7 @@ def test_bucket_probe_stream_shape_sweep(m, width, hash_mode):
     want = jbp.bucket_probe_stream(jt.keys, jt.values, jnp.asarray(pk), jb,
                                    block_pb=64, interpret=True)
     _eq(got, want)
-    bids = tht.hash_bucket(_t(pk), tt.num_buckets, tt.hash_mode)
-    _eq(got, probe_rows(tt.keys, tt.values, _t(pk), bids))
+    _eq(got, probe_rows(tt.keys, tt.values, _t(pk), hash_mode))
 
 
 @pytest.mark.parametrize("width,dwidth,m,hash_mode,delta_hash_mode",
@@ -585,20 +641,20 @@ def test_plain_sums_wrap_like_int32():
 
 @pytest.mark.parametrize("bad", ["dtype", "shape", "ndims", "meta_device"])
 def test_wrappers_reject_bad_operands(bad):
-    table, pk, bids = tops._probe_cases("cpu")
-    keys, vals = table.keys, table.values
+    table, pk = tops._probe_cases("cpu")
+    keys, vals, mode = table.keys, table.values, table.hash_mode
     if bad == "dtype":
         pk = pk.long()
     elif bad == "shape":
-        bids = bids[:-1]
+        vals = vals[:-1]
     elif bad == "meta_device":
-        keys, vals, pk, bids = (t.to("meta") for t in (keys, vals, pk, bids))
+        keys, vals, pk = (t.to("meta") for t in (keys, vals, pk))
     if bad == "ndims":
         with pytest.raises(ValueError):
             fused_query((), pk, num_segments=1)
         return
     with pytest.raises(ValueError):
-        probe_rows(keys, vals, pk, bids)
+        probe_rows(keys, vals, pk, mode)
 
 
 _C_TYPES = {"const void*": _build._P, "void*": _build._P,

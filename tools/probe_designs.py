@@ -14,7 +14,7 @@ per-row predicate of the dimension's SSB selectivity (date 1/7, supplier
 and customer 1/5, part and the other two 1/25; seed 0), and times with CUDA
 events, in two passes (forward, then reverse order):
 
-- ``probe_rows`` (the port's kernel; its bucket ids made beforehand);
+- ``probe_rows`` (the port's kernel; it hashes the keys itself);
 - ``pr13``, ``mask``, ``screen``, ``screen_hints``, ``pair``, ``multi2``,
   ``multi4``, ``multi8``, ``summary``, ``smem`` (``probe_designs.cu``; the
   bit sets made beforehand, the bucket ids for ``pr13`` too);
@@ -181,7 +181,7 @@ def main() -> int:
             if not torch.equal(run(design, out=outs[design]), want):
                 raise AssertionError(f"{name}: design {design} differs")
         fns = {"probe_rows": lambda: probe_rows(tbl.keys, tbl.values, codes,
-                                                bids),
+                                                tbl.hash_mode),
                **{d: (lambda d=d: run(d, out=outs[d]))
                   for d in ("pr13",) + DESIGNS},
                "probe_filter_rows": lambda: probe_filter_rows(
