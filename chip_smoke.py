@@ -41,6 +41,41 @@ Phases (each raises on failure; nothing is caught):
    key->row maps kept through the stream, and the launches must equal the
    fixed counts.  Then every dimension is compacted and the same checks
    run again, with the same answers.
+6b. Fact-append path: a fresh gathered engine on phase 4's tables takes
+   ``warm_cache()``, then 2 warm-up and 10 timed ``append_fact_rows`` of
+   1% of the fact table each (600,000 rows at SF10, padded to a 2^20-row
+   tail bucket; ``generate_fact_batch`` with seed+2).  Gates: each append
+   launches ``probe_rows`` 4 times (one tail probe per cached dimension)
+   and nothing else; after each append, ``probe_rows`` is held against
+   its plain version on every dimension's padded tail window (the
+   kernel's own inputs) and each tail lookup against ``impl="torch"``;
+   the capacity grows once (the first append, to 76,546,048 rows at
+   SF10); ``tail_extensions`` is 4 x 12, every report says "extended" for
+   every dimension; the tenth append (+10% logical rows) runs the skew
+   re-measure; no cached probe finds a padding row.  Then where an
+   append's time goes: each dimension's tail lookup and lookup + splice
+   by CUDA events, the four by the host clock, the validation, padding
+   and host-to-device copies of the ten columns, ``Table.append_tail`` in
+   place and with a capacity growth (three times, the first after
+   ``torch.cuda.empty_cache()``), and the skew re-measure.  A twin takes
+   the same batches with ``extend_cache=False`` + ``warm_cache()`` (the
+   reprobe time).  Then the 13 queries over the padded columns (cached,
+   cold, mega: the main path's launch counts) must agree with each
+   other, with an engine rebuilt on the trimmed tables, and (Q1.1, Q2.1)
+   with numpy on the logical rows; ``probe_filter_rows`` (every
+   dimension) and ``fused_query`` (all 13 queries) are held against
+   their plain versions on the padded operands.  A ``"stream"`` engine
+   (4 ``bucket_probe_stream`` launches per append, then the stream
+   path's counts), a forced ``"hot_cold"`` engine (per append and
+   dimension one ``probe_rows`` for the hot table and one for the cold
+   remainder unless the plan is a full map; its appends timed; then the
+   counts of phase 5's hot/cold pass) and an engine holding phase 6's
+   live deltas (4 ``probe_rows`` per append, then the live path's
+   counts) repeat the appends, with the same per-append kernel checks;
+   their answers must equal the gathered engine's and a rebuilt engine's
+   with the same dimension ops, and ``probe_filter_rows_delta``
+   (EMPTY_KEY raw keys against EMPTY_KEY-padded delta planes) and
+   ``fused_query`` are held against their plain versions there.
 7. Skew path (the JAX package's ``benchmarks/skew_sweep.py`` at SSB SF10
    sizes): a 2,000,000-key dimension with part's geometry, probed by
    60,000,000 Zipf(s) keys for s in the paper's grid {0, 0.5, 1.5, 2}.
@@ -62,12 +97,14 @@ Phases (each raises on failure; nothing is caught):
    must move and the bound they set (for ``fused_query``, what the query's
    data needs: a row stops at the first dimension that rejects it, so
    later code vectors and the measure count only in the sectors a
-   surviving row reaches), ingest and compact times, peak device
-   memory.  ``probe_rows``, ``bucket_probe_stream`` and the two filter
-   kernels are also timed on every dimension's operands (tables from
-   date's to part's), and ``fused_query`` on every query, static and
-   live, each with its launches per pass there; last, ``ops.probe_table``
-   on part's probes by the host clock (``[ops]``).  Device times come from
+   surviving row reaches), ingest and compact times, each append's
+   wall ms with the tail-extend, hot/cold and reprobe medians, the
+   growth append and the split above, the cached, cold and mega suites
+   before and after the appends, peak device memory.  ``probe_rows``, ``bucket_probe_stream``
+   and the two filter kernels are also timed on every dimension's
+   operands (tables from date's to part's), and ``fused_query`` on every
+   query, static and live, each with its launches per pass there; last,
+   ``ops.probe_table`` on part's probes by the host clock (``[ops]``).  Device times come from
    CUDA events around launches queued behind a ``torch.cuda._sleep``, so
    that a wrapper's host time does not hide in them.
 
@@ -136,6 +173,18 @@ SKEW_REPS = 3
 # the share of each dimension's keys the mutation stream deletes, upserts
 # and appends
 MUTATION_FRAC = 0.005
+# the fact-append phase: batches of this share of the fact table (600,000
+# rows at SF10, a 2^20-row tail bucket), warm-up and timed appends; the
+# append whose logical rows first reach FACT_REMEASURE_FRAC (+10%)
+# re-measures the skew
+APPEND_FRAC = 0.01
+APPEND_WARMUP = 2
+APPEND_TIMED = 10
+REMEASURE_AT = 10
+# launches of one append on an engine with every dimension cached: one
+# tail probe per dimension (the stream schedule: bucket_probe_stream)
+EXPECTED_APPEND = dict(_ZERO, probe_rows=4)
+EXPECTED_APPEND_STREAM = dict(_ZERO, bucket_probe_stream=4)
 # the shapes the kernel table reports: the largest dimension's probes, and
 # the query with the most dimensions and the largest group space
 TIMED_DIM = "part"
@@ -182,7 +231,11 @@ def main() -> int:
     from repro_torch.core.skew import zipf_sample, zipf_weights
     from repro_torch.engine import (SSB_QUERIES, SSBEngine, Table,
                                     build_dim_index, effective_index,
-                                    generate_ssb, lookup)
+                                    extend_cached_probe,
+                                    generate_fact_batch, generate_ssb,
+                                    lookup, tail_lookup)
+    from repro_torch.engine.queries import _check_batch_col
+    from repro_torch.engine.table import pad_batch, tail_bucket
     from repro_torch.engine.queries import DIM_PK, FACT_FK, _mega_operands
     from repro_torch.kernels import _build
     from repro_torch.kernels.bucket_probe import pack_bits, pack_bits_plain
@@ -238,8 +291,9 @@ def main() -> int:
                          pack_bits=pack_bits.launches,
                          pack_query_bits=pack_query_bits.launches)
 
-    def check_counts(got, want, what):
-        log(f"[launches] {what}: {json.dumps(got)}")
+    def check_counts(got, want, what, quiet=False):
+        if not quiet:
+            log(f"[launches] {what}: {json.dumps(got)}")
         if got != want:
             raise AssertionError(f"{what}: launch counts {got} != expected "
                                  f"{want}")
@@ -321,24 +375,26 @@ def main() -> int:
         return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
                                      else "operations")
 
-    def check_probe_kernel(name, ops, vector_idx, dim, n_ops_per_probe):
+    def check_probe_kernel(name, ops, vector_idx, dim, n_ops_per_probe,
+                           timed=True):
         """Hold one probe kernel against its plain version (in chunks of
-        the probe vectors) on real operands; time the kernel on every
-        dimension (``PER_DIM_KERNELS``) or on ``TIMED_DIM``, and its plain
-        version on ``TIMED_DIM``."""
+        the probe vectors) on real operands; unless ``timed`` is False,
+        time the kernel on every dimension (``PER_DIM_KERNELS``) or on
+        ``TIMED_DIM``, and its plain version on ``TIMED_DIM``."""
         op = KERNEL_REGISTRY[name]
         got = op.fn(*ops)
+        m = ops[vector_idx[0]].shape[0]
 
         def plain(ops=ops, op=op):
             return [op.plain_fn(*(t[s:s + CHUNK] if i in vector_idx else t
                                   for i, t in enumerate(ops)))
-                    for s in range(0, n_fact, CHUNK)]
+                    for s in range(0, m, CHUNK)]
         e = max_err(got, torch.cat(plain()))
         err[name] = max(err[name], e)
         if e:
             raise AssertionError(f"{name} on {dim} differs from its plain "
                                  f"version by {e}")
-        if dim != TIMED_DIM and name not in PER_DIM_KERNELS:
+        if not timed or (dim != TIMED_DIM and name not in PER_DIM_KERNELS):
             return
         # the hash mode travels as a string: only tensors move bytes
         moved = nbytes(*(t for t in ops if torch.is_tensor(t))) + 4 * n_fact
@@ -431,25 +487,28 @@ def main() -> int:
         moved = 4 * size + nbytes(*(t for ops in dim_ops
                                     for i, t in enumerate(ops)
                                     if torch.is_tensor(t) and i % 4 != 0))
-        alive = torch.ones(n_fact, dtype=torch.bool, device=fmeasure.device)
+        m = fmeasure.shape[0]
+        alive = torch.ones(m, dtype=torch.bool, device=fmeasure.device)
         for d in order:
             moved += sector_bytes(alive) * len(dim_ops[d]) // 4
             alive &= torch.cat([dim_passes(dim_ops[d], lo, lo + CHUNK)
-                                for lo in range(0, n_fact, CHUNK)])
+                                for lo in range(0, m, CHUNK)])
         return moved + sector_bytes(alive)
 
     def check_fused(eng, label):
         """``fused_query`` (and the ``pack_query_bits`` before it) against
-        its plain version on all 13 queries' operands of ``eng``; times it
-        on each and prints its bytes, bound and launches x gap there."""
+        its plain version on all 13 queries' operands of ``eng`` (over its
+        own fact table's physical rows); times it on each and prints its
+        bytes, bound and launches x gap there."""
         ms, gap, bound_sum, every_sum = {}, 0.0, 0.0, 0.0
+        cols = dict(eng.tables["lineorder"].columns)
         for q in names:
             spec = SSB_QUERIES[q]
             dim_cols = {d: dict(eng.tables[d].columns)
                         for d in spec.joined_dims()}
             idx = {d: effective_index(eng.indexes[d])
                    for d in spec.joined_dims()}
-            dim_ops, fmeasure, size = _mega_operands(spec, fact_cols,
+            dim_ops, fmeasure, size = _mega_operands(spec, cols,
                                                      dim_cols, idx)
             (bits, stats), (want_bits, want_stats) = (
                 pack_query_bits(dim_ops), pack_query_bits_plain(dim_ops))
@@ -476,13 +535,15 @@ def main() -> int:
                              if torch.is_tensor(t)), fmeasure) + 4 * size
             moved = fused_needed_bytes(dim_ops, fmeasure, stats, size)
             w = dim_ops[0][1].shape[1]
-            b_ms, b_by = bound(moved, n_fact * len(dim_ops) * (2 * w + 8))
+            b_ms, b_by = bound(moved, fmeasure.shape[0] * len(dim_ops)
+                               * (2 * w + 8))
             gap += ms[q] - b_ms
             bound_sum += b_ms
             every_sum += every / HBM_BYTES_PER_S * 1e3
             kinds = "+".join("delta" if len(o) == 8 else "static"
                              for o in dim_ops)
             log(f"[kernel-query] fused_query {q} ({label}; "
+                f"{fmeasure.shape[0]} rows, "
                 f"{[tuple(o[1].shape) for o in dim_ops]} planes, {kinds}, "
                 f"{size} segments, sort stats {stats.tolist()}): "
                 f"{ms[q]:.4f} ms/launch, moves {moved} bytes (every input "
@@ -490,7 +551,8 @@ def main() -> int:
                 f"per pass, launches x gap {ms[q] - b_ms:.4f} ms")
             if q == TIMED_QUERY and "fused_query" not in rows:
                 rows["fused_query"] = {
-                    "shape": f"{q}: {n_fact} rows, {len(dim_ops)} dims, "
+                    "shape": f"{q}: {fmeasure.shape[0]} rows, "
+                             f"{len(dim_ops)} dims, "
                              f"{size} segments", "bytes": moved,
                     "ms": ms[q],
                     "plain_ms": event_ms(lambda: fused_plain_chunked(
@@ -698,6 +760,8 @@ def main() -> int:
     rng = np.random.default_rng(args.seed + 1)
     key_row = {}      # dim -> host key->row map, -1 where a key joins nothing
     ingest_ms = {}
+    mut_ops = []      # (dim, deletes, upserts, payloads, new rows), replayed
+
     for dim in DIM_PK:
         n = mut.tables[dim].n_rows
         k = max(1, int(n * MUTATION_FRAC))
@@ -712,6 +776,7 @@ def main() -> int:
         kr[dels] = -1
         kr[ups] = pays
         key_row[dim] = kr
+        mut_ops.append((dim, dels, ups, pays, rows_new))
         for eng in (mut, twin):
             calls = (("delete", lambda: eng.ingest(dim, dels, op="delete",
                                                    auto_compact=False)),
@@ -794,6 +859,293 @@ def main() -> int:
         "mega == torch == the live-delta answers, bit for bit")
     check_numpy(res_c["cached"], mut, key_row, "compacted")
     del host
+
+    del mut, twin, res_live, res_c
+    torch.cuda.empty_cache()
+
+    # -- 6b. fact-append path -----------------------------------------------------
+    def replay_mutations(eng):
+        """Phase 6's dimension stream on ``eng`` (deltas stay live)."""
+        for dim, dels, ups, pays, rows_new in mut_ops:
+            eng.ingest(dim, dels, op="delete", auto_compact=False)
+            eng.ingest(dim, ups, pays, op="upsert", auto_compact=False)
+            eng.append_rows(dim, rows_new, auto_compact=False)
+
+    def replay_dim_ops(eng):
+        """Phase 6's deletes and upserts on an engine whose dimension
+        tables already hold the appended rows."""
+        for dim, dels, ups, pays, _ in mut_ops:
+            eng.ingest(dim, dels, op="delete", auto_compact=False)
+            eng.ingest(dim, ups, pays, op="upsert", auto_compact=False)
+
+    def check_padding(eng, label):
+        """Every cached probe misses on the capacity padding rows."""
+        n = eng.tables["lineorder"].n_rows
+        for d in DIM_PK:
+            if bool(eng.probe_dim(d)[0][n:].any()):
+                raise AssertionError(f"{label}: a padding row of {d} was "
+                                     "found")
+
+    def check_tail(eng, name, label):
+        """The kernel the append's tail probe launches (``name``) against
+        its plain version on the padded FK window the last append wrote,
+        per dimension; and the whole tail lookup under the engine's plan
+        (hot table, cold stream, delta overlay) against ``impl="torch"``."""
+        fact = eng.tables["lineorder"]
+        n0 = fact.n_rows - n_batch
+        for dim in DIM_PK:
+            idx = effective_index(eng.indexes[dim])
+            tbl = idx.table
+            fk_tail = fact[FACT_FK[dim]].narrow(0, n0, bp)
+            check_probe_kernel(name, (tbl.keys, tbl.values,
+                                      encode(idx.dictionary, fk_tail),
+                                      tbl.hash_mode), (2,), dim,
+                               2 * tbl.bucket_width + 4, timed=False)
+            plan, hot = eng.plans.get(dim), eng._hot_codes.get(dim)
+            got = tail_lookup(idx, fk_tail, hot, impl="cuda", plan=plan)
+            want = tail_lookup(idx, fk_tail, hot, impl="torch", plan=plan)
+            if max_err(got, want):
+                raise AssertionError(f"{label}: the tail lookup of {dim} "
+                                     "differs from its plain version")
+
+    def append_all(eng, batches, want, label):
+        """Every batch through ``eng.append_fact_rows``: each append's
+        launches must be ``want``; after each, ``check_tail``.  Returns
+        the reports and each append's wall ms (host clock ending in a
+        synchronize)."""
+        reps_, ms = [], []
+        name = next(k for k in ("probe_rows", "bucket_probe_stream")
+                    if want[k])
+        i = -1
+        for i, b in enumerate(batches):
+            secs, got = counted(lambda: timed_call(
+                lambda: reps_.append(eng.append_fact_rows(b))))
+            ms.append(secs * 1e3)
+            check_counts(got, want, f"{label} append {i}", quiet=True)
+            check_tail(eng, name, f"{label} append {i}")
+        log(f"[launches] each of the {label} engine's {i + 1} "
+            f"appends: {json.dumps(want)}; {name} bit-identical to its "
+            "plain version on every append's padded tail of every "
+            "dimension, and each tail lookup to impl='torch'")
+        return reps_, ms
+
+    def rebuilt_answers(eng, ops):
+        """The 13 answers of an engine rebuilt on ``eng``'s trimmed fact
+        table and its dimension tables, ``ops`` replayed on it."""
+        trimmed = eng.tables["lineorder"].trimmed()
+        rebuilt = SSBEngine({"lineorder": trimmed,
+                             **{d: eng.tables[d] for d in DIM_PK}})
+        ops(rebuilt)
+        out = rebuilt.run_all(fusion="composed")
+        sync()
+        return out
+
+    torch.cuda.reset_peak_memory_stats()
+    n_batch = int(n_fact * APPEND_FRAC)
+    bp = tail_bucket(n_batch)
+    n_appends = APPEND_WARMUP + APPEND_TIMED
+    t0 = time.perf_counter()
+    fa = SSBEngine(tables)
+    fa.warm_cache()
+    sync()
+    log(f"[append] gathered engine built and warmed in "
+        f"{time.perf_counter() - t0:.3f} s; {n_appends} appends of "
+        f"{n_batch} rows ({APPEND_WARMUP} warm-up)")
+    rng = np.random.default_rng(args.seed + 2)
+    batches = []
+
+    def fresh_batches():
+        """Each batch drawn from the gathered engine's tables as they
+        stand (kept for the other engines)."""
+        for _ in range(n_appends):
+            batches.append(generate_fact_batch(fa.tables, n_batch, rng))
+            yield batches[-1]
+
+    reports, append_ms = append_all(fa, fresh_batches(), EXPECTED_APPEND,
+                                    "gathered")
+    info = fa.fact_append_info()
+    grew = [i for i, r in enumerate(reports) if r["capacity_grew"]]
+    log(f"[append] reports: grew at {grew}; skew re-planned "
+        f"{[r['skew_replanned'] for r in reports]}; "
+        f"{json.dumps(info)}")
+    if len(grew) != 1:
+        raise AssertionError(f"capacity grew at appends {grew}, not once")
+    if info["tail_extensions"] != len(DIM_PK) * n_appends or \
+            info["tail_reprobes"] != 0:
+        raise AssertionError(f"tail extensions {info}")
+    if any(r["dims"] != {d: "extended" for d in DIM_PK} for r in reports):
+        raise AssertionError("an append did not extend every dimension")
+    if fa._skew_measured_rows != n_fact + REMEASURE_AT * n_batch:
+        raise AssertionError(f"the skew re-measure did not run at append "
+                             f"{REMEASURE_AT}")
+    check_padding(fa, "gathered engine")
+
+    # where an append's time goes (on the gathered engine after its
+    # appends, the last batch's window): the tail lookup and the lookup
+    # plus splice per dimension on the card (device time), the four
+    # extensions by the host clock; the validation of ten columns, their
+    # padding and host-to-device copies, the table's append_tail in place
+    # and with a capacity growth (the first after emptying the
+    # allocator's cache); one skew re-measure of the four FK columns
+    fact = fa.tables["lineorder"]
+    n0 = fact.n_rows - n_batch
+    split = {"lookup": {}, "extend": {}}
+    extend = []
+    for dim in DIM_PK:
+        idx = effective_index(fa.indexes[dim])
+        fk_tail = fact[FACT_FK[dim]].narrow(0, n0, bp)
+        plan, hot = fa.plans.get(dim), fa._hot_codes.get(dim)
+        cached = tuple(t.clone() for t in fa.probe_dim(dim))
+        split["lookup"][dim] = event_ms(
+            lambda: tail_lookup(idx, fk_tail, hot, impl="cuda", plan=plan),
+            KERNEL_REPS)
+        extend.append(lambda idx=idx, c=cached, fk=fk_tail, h=hot, p=plan:
+                      extend_cached_probe(idx, *c, fk, n0, h, impl="cuda",
+                                          plan=p, owned=True))
+        split["extend"][dim] = event_ms(extend[-1], KERNEL_REPS)
+    split["extend_wall"] = [timed_call(lambda: [f() for f in extend]) * 1e3
+                            for _ in range(5)]
+    del extend, cached
+    cols = batches[-1]
+    pad = {FACT_FK[d]: EMPTY_KEY for d in DIM_PK}
+    split["validate"] = [timed_call(lambda: [
+        _check_batch_col(k, v) for k, v in cols.items()]) * 1e3
+        for _ in range(5)]
+    split["pad_copy"] = [timed_call(lambda: [
+        pad_batch(v, bp, pad.get(k, 0), fact.device)
+        for k, v in cols.items()]) * 1e3 for _ in range(5)]
+    trim = fact.trimmed()
+    torch.cuda.empty_cache()
+    split["grow"] = [timed_call(lambda: trim.append_tail(cols, pad,
+                                                         bucket=bp)) * 1e3
+                     for _ in range(3)]
+    grown_t = trim.append_tail(cols, pad, bucket=bp)
+    split["in_place"] = []
+    for _ in range(5):
+        t = time.perf_counter()
+        grown_t = grown_t.append_tail(cols, pad, bucket=bp)
+        sync()
+        split["in_place"].append((time.perf_counter() - t) * 1e3)
+    del trim, grown_t
+    split["measure_skew"] = [timed_call(lambda: [
+        measure_skew(fact[FACT_FK[d]][:fact.n_rows]) for d in DIM_PK]) * 1e3
+        for _ in range(3)]
+    torch.cuda.empty_cache()
+
+    # the same appends with the cache invalidated and re-probed
+    twin_r = SSBEngine(tables)
+    twin_r.warm_cache()
+    reprobe_ms = []
+    for b in batches:
+        reprobe_ms.append(timed_call(lambda: (
+            twin_r.append_fact_rows(b, extend_cache=False),
+            twin_r.warm_cache())) * 1e3)
+    if twin_r.fact_append_info()["tail_reprobes"] != \
+            len(DIM_PK) * n_appends:
+        raise AssertionError("the reprobe twin did not invalidate")
+    del twin_r
+    torch.cuda.empty_cache()
+
+    # the queries over the grown, capacity-padded columns
+    drive_paths(fa, PATHS)  # warm-up pass
+    (res_a, wall_a), launches_a = counted(lambda: drive_paths(fa, PATHS))
+    check_counts(launches_a, EXPECTED_LAUNCHES, "fact-append path, queries")
+    check_agree(res_a, res_a["cached"], ("cached_warm", "cold", "mega"),
+                "fact-append")
+    check_agree(res_a, rebuilt_answers(fa, lambda e: None),
+                ("cached",), "fact-append against the rebuilt engine")
+    host = {c: fa.tables["lineorder"][c][:fa.tables["lineorder"].n_rows]
+            .cpu().numpy().astype(np.int64)
+            for c in ("orderdate", "discount", "quantity", "extendedprice",
+                      "partkey", "suppkey", "revenue")}
+    check_numpy(res_a["cached"], fa, None, "after the appends")
+    log(f"[agree] after {n_appends} appends: all {len(names)} queries: "
+        "cached == cold == mega == an engine rebuilt on the trimmed "
+        "tables, bit for bit")
+    n_phys = fa.tables["lineorder"].n_physical
+    for dim, index in fa.indexes.items():
+        tbl = index.table
+        fk = fa.tables["lineorder"][FACT_FK[dim]]
+        pred = slot_predicate(tbl, SSB_QUERIES[FILTER_QUERY[dim]]
+                              .dim_filters[dim](fa.tables[dim]))
+        check_probe_kernel("probe_filter_rows",
+                           (tbl.keys, tbl.values, pred,
+                            encode(index.dictionary, fk), tbl.hash_mode),
+                           (3,), dim, 2 * tbl.bucket_width + 4, timed=False)
+    log(f"[parity] probe_filter_rows on every dimension's {n_phys} padded "
+        "probes: bit-identical")
+    check_fused(fa, "padded")
+
+    # the same appends on a stream engine and on one with live deltas
+    st = SSBEngine(tables, policy=ExecutionPolicy(schedule="stream"))
+    st.warm_cache()
+    append_all(st, batches, EXPECTED_APPEND_STREAM, "stream")
+    check_padding(st, "stream engine")
+    (res_st, _), launches_st = counted(
+        lambda: drive_paths(st, ("cached", "cold")))
+    check_counts(launches_st, EXPECTED_STREAM, "stream, after appends")
+    check_agree(res_st, res_a["cached"], ("cached", "cold"),
+                "stream after appends")
+    del st, res_st
+    torch.cuda.empty_cache()
+    # a forced hot/cold engine: the tail's cold stream is clamped to the
+    # tail (tail_lookup), so an append is O(tail) here too; per append
+    # and dimension, the hot table's probe and the cold remainder's
+    hc = SSBEngine(tables, policy=ExecutionPolicy(schedule="hot_cold"))
+    hc.warm_cache()
+    want_hc = dict(_ZERO, probe_rows=sum(1 + (not p.full_map)
+                                         for p in hc.plans.values()))
+    _, hc_ms = append_all(hc, batches, want_hc, "hot_cold")
+    check_padding(hc, "hot_cold engine")
+    (res_hc, _), launches_hc = counted(
+        lambda: drive_paths(hc, ("cached", "cold")))
+    check_counts(launches_hc, hot_cold_launches(hc.plans),
+                 "hot_cold, after appends")
+    check_agree(res_hc, res_a["cached"], ("cached", "cold"),
+                "hot_cold after appends")
+    del hc, res_hc
+    torch.cuda.empty_cache()
+    lv = SSBEngine(own_dims())
+    replay_mutations(lv)
+    lv.warm_cache()
+    append_all(lv, batches, EXPECTED_APPEND, "live-delta")
+    check_padding(lv, "live-delta engine")
+    drive_paths(lv, PATHS)  # warm-up pass
+    (res_lv, wall_lv), launches_lv = counted(lambda: drive_paths(lv, PATHS))
+    check_counts(launches_lv, EXPECTED_LIVE, "live deltas, after appends")
+    check_agree(res_lv, res_lv["cached"], ("cached_warm", "cold", "mega"),
+                "live deltas after appends")
+    check_agree(res_lv, rebuilt_answers(lv, replay_dim_ops),
+                ("cached",), "live deltas against the rebuilt engine")
+    check_numpy(res_lv["cached"], lv, key_row, "live deltas, appends")
+    log(f"[agree] stream, hot_cold and live-delta engines after the "
+        f"appends: all {len(names)} queries equal the gathered engine's "
+        "(stream, hot_cold) and a rebuilt engine's with the same dimension "
+        "ops (live), bit for bit")
+    for dim in DIM_PK:
+        idx = effective_index(lv.indexes[dim])
+        tbl, dl = idx.table, idx.delta
+        fk = lv.tables["lineorder"][FACT_FK[dim]]
+        dmask = SSB_QUERIES[FILTER_QUERY[dim]].dim_filters[dim](
+            lv.tables[dim])
+        check_probe_kernel("probe_filter_rows_delta",
+                           (tbl.keys, tbl.values, slot_predicate(tbl, dmask),
+                            encode(idx.dictionary, fk), tbl.hash_mode,
+                            dl.keys, delta_slot_words(dl, dmask), fk,
+                            dl.hash_mode), (3, 7), dim,
+                           2 * tbl.bucket_width + 2 * dl.bucket_width + 8,
+                           timed=False)
+    log(f"[parity] probe_filter_rows_delta on every dimension's {n_phys} "
+        "padded probes (EMPTY_KEY raw keys): bit-identical")
+    check_fused(lv, "padded, live deltas")
+    peak_append = torch.cuda.max_memory_allocated()
+    append_summary = {
+        "append_ms": append_ms, "reprobe_ms": reprobe_ms, "grew": grew[0],
+        "hot_cold_ms": hc_ms, "split": split,
+        "wall": wall_a, "wall_live": wall_lv, "peak": peak_append,
+        "n_rows": fa.tables["lineorder"].n_rows, "n_physical": n_phys}
+    del fa, lv, res_a, res_lv, batches, host
+    torch.cuda.empty_cache()
 
     # -- 7. skew path ---------------------------------------------------------------
     dev = engine.device
@@ -1011,6 +1363,53 @@ def main() -> int:
         log_walls(sched, w, ("cold",))
     log_walls("live-delta", wall_live, ("cached_warm", "cold", "mega"))
     log_walls("compacted", wall_c, ("cached_warm", "cold", "mega"))
+    a = append_summary
+    med = {k: float(np.median(a[k][APPEND_WARMUP:]))
+           for k in ("append_ms", "reprobe_ms")}
+    log(f"[append] {smi}: ms per append_fact_rows of {n_batch} rows "
+        f"(host clock ending in synchronize): "
+        f"{json.dumps([round(x, 3) for x in a['append_ms']])}; the "
+        f"capacity growth (append {a['grew']}): "
+        f"{a['append_ms'][a['grew']]:.3f} ms")
+    log(f"[append] {smi}: ms per append_fact_rows(extend_cache=False) + "
+        f"warm_cache() on a twin engine: "
+        f"{json.dumps([round(x, 3) for x in a['reprobe_ms']])}")
+    log(f"[append] {smi}: median of the {APPEND_TIMED} timed appends: tail "
+        f"extend {med['append_ms']:.3f} ms, reprobe {med['reprobe_ms']:.3f} "
+        f"ms ({med['reprobe_ms'] / med['append_ms']:.2f}x); after the "
+        f"appends {a['n_rows']} logical rows in {a['n_physical']} physical")
+    log(f"[append] {smi}: ms per append_fact_rows on a forced hot_cold "
+        f"engine: {json.dumps([round(x, 3) for x in a['hot_cold_ms']])}; "
+        f"median of the timed {np.median(a['hot_cold_ms'][APPEND_WARMUP:]):.3f}"
+        " ms")
+    sp = a["split"]
+    log(f"[append-split] {smi}: device ms per dimension (CUDA events, "
+        f"{KERNEL_REPS} reps), tail_lookup of the {bp}-row tail: "
+        f"{json.dumps({d: round(v, 4) for d, v in sp['lookup'].items()})}; "
+        f"extend_cached_probe (lookup + splice): "
+        f"{json.dumps({d: round(v, 4) for d, v in sp['extend'].items()})}, "
+        f"sum {sum(sp['extend'].values()):.4f}")
+    log(f"[append-split] {smi}: host clock ms ending in synchronize: the "
+        f"four extensions {json.dumps([round(x, 3) for x in sp['extend_wall']])}; "
+        f"validating ten columns {json.dumps([round(x, 3) for x in sp['validate']])}; "
+        f"padding them and copying to the card "
+        f"{json.dumps([round(x, 3) for x in sp['pad_copy']])}; "
+        f"Table.append_tail in place "
+        f"{json.dumps([round(x, 3) for x in sp['in_place']])}; with a "
+        f"capacity growth (the first after torch.cuda.empty_cache()) "
+        f"{json.dumps([round(x, 3) for x in sp['grow']])}; measure_skew of "
+        f"the four FK columns over {a['n_rows']} rows "
+        f"{json.dumps([round(x, 3) for x in sp['measure_skew']])}")
+    for label, w in (("before the appends (60M unpadded rows)", wall),
+                     ("after the appends (padded)", a["wall"]),
+                     ("after the appends, live deltas", a["wall_live"])):
+        log(f"[append-wall] {label}: cached run_all suite "
+            f"{w['cached_suite'] * 1e3:.3f} ms, cached_warm "
+            f"{sum(w['cached_warm'].values()) * 1e3:.3f} ms, cold "
+            f"{sum(w['cold'].values()) * 1e3:.3f} ms, mega "
+            f"{sum(w['mega'].values()) * 1e3:.3f} ms (13 queries)")
+    log(f"[memory] peak allocated over the fact-append phase: {a['peak']} "
+        f"bytes ({a['peak'] / 2**30:.3f} GiB)")
     log(f"[ingest] ms per call (ops per batch): {json.dumps(ingest_ms)}")
     log(f"[compact] ms per call: {json.dumps(compact_ms)}")
 

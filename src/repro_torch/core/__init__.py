@@ -22,11 +22,12 @@ from repro_torch.core.lookup import (NULL_WORD, HotTable, JoinResult,
                                      pack_words, probe, probe_deduped,
                                      probe_hot_cold, probe_with_delta,
                                      select_distinct, select_where_eq,
-                                     unpack_words)
-from repro_torch.core.planner import (CompactionPlan, SchedulePlan,
-                                      plan_compaction, plan_probe,
-                                      refine_plan)
-from repro_torch.core.policy import ExecutionPolicy
+                                     splice_probe, unpack_words)
+from repro_torch.core.planner import (CompactionPlan, FactAppendPlan,
+                                      SchedulePlan, plan_compaction,
+                                      plan_fact_append, plan_probe,
+                                      refine_plan, skew_drift)
+from repro_torch.core.policy import ExecutionPolicy, resolve_policy
 from repro_torch.core.skew import SkewStats, measure_skew, top_keys
 
 __all__ = ["Coalesced", "coalesce", "duplication_factor", "scatter_back",
@@ -43,6 +44,8 @@ __all__ = ["Coalesced", "coalesce", "duplication_factor", "scatter_back",
            "build_hot_table", "hot_hit_count", "join", "overlay_delta",
            "pack_words", "probe", "probe_deduped", "probe_hot_cold",
            "probe_with_delta", "select_distinct", "select_where_eq",
-           "unpack_words", "CompactionPlan", "SchedulePlan",
-           "plan_compaction", "plan_probe", "refine_plan", "ExecutionPolicy",
-           "SkewStats", "measure_skew", "top_keys"]
+           "splice_probe", "unpack_words", "CompactionPlan",
+           "FactAppendPlan", "SchedulePlan", "plan_compaction",
+           "plan_fact_append", "plan_probe", "refine_plan", "skew_drift",
+           "ExecutionPolicy", "resolve_policy", "SkewStats", "measure_skew",
+           "top_keys"]

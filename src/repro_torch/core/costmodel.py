@@ -1,13 +1,14 @@
 """Host cost model: the parts of ``repro.core.costmodel`` the planners use.
 
-``probe_schedule_seconds`` prices one probe schedule (``plan_probe``), and
-``plan_compaction`` prices three things: the delta overlay every probe
-stream pays while a delta is live, one bucket-local merge, and the full
-rebuild the delta path avoids.  The per-element costs are the JAX
-package's ``"cpu"`` entry, measured there on a CPU host.  The port has no
-costs measured on a CUDA card yet, so any other backend raises
-``NotImplementedError`` instead of being priced as a CPU: the planner slice
-(ROADMAP Queue 1 item 5) brings the card's entry.
+``probe_schedule_seconds`` prices one probe schedule (``plan_probe``),
+``tail_extend_seconds`` a probe-cache extension over an appended fact tail
+(``plan_fact_append``), and ``plan_compaction`` prices three things: the
+delta overlay every probe stream pays while a delta is live, one
+bucket-local merge, and the full rebuild the delta path avoids.  The
+per-element costs are the JAX package's ``"cpu"`` entry, measured there on
+a CPU host.  The port has no costs measured on a CUDA card yet, so any
+other backend raises ``NotImplementedError`` instead of being priced as a
+CPU: the planner slice (ROADMAP Queue 1 item 5) brings the card's entry.
 """
 from __future__ import annotations
 
@@ -113,6 +114,32 @@ def probe_schedule_seconds(schedule: str, *, n_probes: int, distinct: int,
                                     bucket_width=bucket_width,
                                     backend=backend) * 1e9
     return (ns + _SCHEDULE_OPS[schedule] * c.op_ns) * 1e-9
+
+
+def tail_extend_seconds(schedule: str, *, n_tail: int, n_cached: int,
+                        distinct: int, bucket_width: int,
+                        cold_capacity: int = 0, hot_slots: int = 0,
+                        delta_slots: int = 0,
+                        backend: str = "cpu") -> float:
+    """Modeled cost of extending a cached probe over an appended fact tail.
+
+    One tail-only probe (``n_tail`` = the pow2-padded batch, under the
+    dimension's planned schedule) plus a splice into the cached
+    ``(found, dim_row)`` arrays: in place once the engine owns them, so
+    the steady-state cost is the window write, with the O(``n_cached``)
+    copy of the first extension after a cold probe as a small residual
+    term.  ``plan_fact_append`` compares it with
+    ``probe_schedule_seconds`` of the whole grown stream.
+    """
+    c = host_costs(backend)
+    probe_s = probe_schedule_seconds(
+        schedule, n_probes=n_tail, distinct=min(distinct, n_tail),
+        bucket_width=bucket_width, cold_capacity=min(cold_capacity, n_tail),
+        hot_slots=hot_slots, delta_slots=delta_slots, backend=backend)
+    splice_ns = (2 * 5 * n_tail * c.cached_gather_ns_per_byte
+                 + 0.1 * 2 * 5 * n_cached * c.cached_gather_ns_per_byte
+                 + 2 * c.op_ns)
+    return probe_s + splice_ns * 1e-9
 
 
 def delta_overlay_seconds(n_probes: int, delta_slots: int,

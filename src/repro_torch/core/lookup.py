@@ -1,7 +1,6 @@
 """JSPIM search-engine semantics: probe, join, select (§3.1.1, §3.2).
 
-PyTorch port of ``repro.core.lookup`` without the fact-side tail splice.
-Three probe schedules:
+PyTorch port of ``repro.core.lookup``.  Three probe schedules:
 
 * ``probe``          -- every probe key activates its bucket (a gather of
                         one row), all ``bucket_width`` slots are compared
@@ -19,9 +18,10 @@ Three probe schedules:
 Each has a delta-aware flavor (``probe_with_delta``): buffered ingest ops
 in a ``core/delta.py`` side table are overlaid after the main probe, and a
 tombstone reads as a miss because its stored word is ``NULL_WORD``.
-``join`` expands matches through the duplication table (CSR) with a fixed
-output capacity; ``select_where_eq`` and ``select_distinct`` are the
-paper's SELECT paths.
+``splice_probe`` writes a probe of an appended fact tail into cached
+full-stream results.  ``join`` expands matches through the duplication table
+(CSR) with a fixed output capacity; ``select_where_eq`` and
+``select_distinct`` are the paper's SELECT paths.
 
 The schedules take ``probe_fn``, the probe they run on the keys they
 keep: the plain ``probe`` by default, or the ``probe_rows`` kernel
@@ -234,6 +234,32 @@ def probe_with_delta(table: JSPIMTable, delta: DeltaTable,
     else:
         raise ValueError(f"unknown schedule {schedule!r}")
     return overlay_delta(pr, delta, dk)
+
+
+# ---------------------------------------------------------------------------
+# Tail extension: splice a tail-only probe into cached full-stream results
+# ---------------------------------------------------------------------------
+
+
+def splice_probe(head, tail, start: int, *, owned: bool = False) -> tuple:
+    """Write (padded) tail probe windows into cached streams at ``start``.
+
+    The fact-side streaming append primitive: ``head`` and ``tail`` are
+    matching tuples of per-probe tensors (``ProbeResult`` fields, or the
+    engine's cached ``(found, dim_row)`` pair), ``head`` over the
+    capacity-padded fact column and ``tail`` over the padded append batch.
+    Padding lanes of the tail probe as misses (their key is ``EMPTY_KEY``),
+    the value the capacity rows they land on hold.  With ``owned`` the
+    windows are written into ``head`` in place; otherwise into copies, so
+    that whoever holds ``head`` keeps reading what it read.
+    """
+    out = []
+    for h, t in zip(head, tail):
+        if not owned:
+            h = h.clone()
+        h.narrow(0, int(start), t.shape[0]).copy_(t)
+        out.append(h)
+    return tuple(out)
 
 
 # ---------------------------------------------------------------------------

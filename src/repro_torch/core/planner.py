@@ -1,4 +1,4 @@
-"""Planning: the probe schedule per dimension, and compaction.
+"""Planning: the probe schedule per dimension, compaction, fact appends.
 
 PyTorch port of the probe-schedule and compaction parts of
 ``repro.core.planner``.  ``plan_probe`` is the paper's skew-adaptive
@@ -9,13 +9,15 @@ probe schedule through ``costmodel.probe_schedule_seconds`` and picks
 compacted cold remainder); ``stream`` is priced for reporting and taken
 only when forced.  A non-default schedule needs a ``GATHERED_MARGIN`` win.
 ``plan_compaction`` decides whether a dimension's delta folds back into
-its main table now.
+its main table now, ``plan_fact_append`` whether a cached probe is
+extended over an appended fact tail or re-probed, and ``skew_drift``
+whether the fact-side skew moved enough since it was measured to re-plan.
 
 Pricing on a CUDA card waits for the planner slice (ROADMAP Queue 1 item
 5): ``costmodel`` has no ``"cuda"`` entry, so on that backend
 ``plan_probe`` needs ``force`` and ``plan_compaction`` raises
-``NotImplementedError``.  The fusion planner waits for the same slice,
-and ``skew_drift`` for the fact append.
+``NotImplementedError``, as does ``plan_fact_append``.  The fusion
+planner waits for the same slice.
 """
 from __future__ import annotations
 
@@ -41,6 +43,14 @@ MIN_ADAPTIVE_PROBES = 100_000
 # estimate is collision-blind; the engine tightens it to the exact count,
 # and probe_hot_cold falls back on overflow regardless).
 COLD_SLACK = 1.3
+# Fact-side skew drift: re-plan a dimension's probe schedule once the
+# appended tail moves any point of the measured top-share curve (or the
+# hottest-key share) by this much; below it a re-plan could only thrash.
+TOP_SHARE_DRIFT = 0.05
+# Re-measure fact skew only after the logical fact stream has grown by
+# this fraction since the last measurement (``measure_skew`` is an
+# O(n log n) pass, too dear to run per append batch).
+FACT_REMEASURE_FRAC = 0.10
 # Compact once the delta holds this fraction of its slots: a 2x-mean
 # bucket is routine under Fibonacci hashing, so compacting at half full
 # keeps per-bucket overflow (which forces a delta grow) rare.
@@ -178,6 +188,14 @@ def plan_probe(stats: SkewStats, *, bucket_width: int, backend: str = "cpu",
                         est_seconds=tuple(sorted(ests.items())))
 
 
+def skew_drift(old: SkewStats, new: SkewStats) -> float:
+    """How far the fact-side top-share curve moved (re-plan trigger input):
+    the worst absolute movement of the curve's points and of the
+    hottest-key share, the inputs the schedule choice depends on."""
+    deltas = [abs(a - b) for a, b in zip(old.top_share, new.top_share)]
+    return max([abs(old.max_share - new.max_share), *deltas])
+
+
 def refine_plan(plan: SchedulePlan, exact_cold: int,
                 n_probes: int) -> SchedulePlan:
     """Tighten ``cold_capacity`` to an exactly measured cold count.
@@ -237,3 +255,50 @@ def plan_compaction(*, delta_entries: int, delta_slots: int,
     return CompactionPlan(compact=compact, reason=reason,
                           est_overlay_s=overlay, est_merge_s=merge,
                           est_rebuild_s=rebuild)
+
+
+# ---------------------------------------------------------------------------
+# Fact-side append planning: extend the probe cache, or reprobe from cold?
+# ---------------------------------------------------------------------------
+
+
+@dataclasses.dataclass(frozen=True)
+class FactAppendPlan:
+    """Hashable extend-or-reprobe decision for one dimension's probe cache
+    after a fact-side append."""
+
+    extend: bool
+    reason: str           # "tail" | "reprobe" | "empty"
+    est_tail_s: float     # tail probe + cache splice
+    est_reprobe_s: float  # cold re-probe of the full grown stream
+
+
+def plan_fact_append(plan: SchedulePlan, *, n_tail: int, n_cached: int,
+                     distinct: int, bucket_width: int,
+                     delta_slots: int = 0,
+                     backend: str = "cpu") -> FactAppendPlan:
+    """Price probe-cache tail extension against invalidate-and-reprobe.
+
+    ``n_tail`` is the pow2-padded append batch, ``n_cached`` the cached
+    probe stream it extends.  Extension probes only the tail and splices;
+    reprobing pays the full schedule over ``n_cached + n_tail`` rows.  The
+    tail wins whenever the batch is small next to the stream.  Raises
+    ``NotImplementedError`` on a backend the cost model has no entry for.
+    """
+    if n_tail == 0:
+        return FactAppendPlan(extend=False, reason="empty",
+                              est_tail_s=0.0, est_reprobe_s=0.0)
+    geom = dict(cold_capacity=plan.cold_capacity, hot_slots=plan.hot_slots) \
+        if plan.schedule == "hot_cold" else {}
+    tail = costmodel.tail_extend_seconds(
+        plan.schedule, n_tail=n_tail, n_cached=n_cached, distinct=distinct,
+        bucket_width=bucket_width, delta_slots=delta_slots, backend=backend,
+        **geom)
+    reprobe = costmodel.probe_schedule_seconds(
+        plan.schedule, n_probes=n_cached + n_tail, distinct=distinct,
+        bucket_width=bucket_width, delta_slots=delta_slots, backend=backend,
+        **geom)
+    extend = tail < reprobe
+    return FactAppendPlan(extend=extend,
+                          reason="tail" if extend else "reprobe",
+                          est_tail_s=tail, est_reprobe_s=reprobe)

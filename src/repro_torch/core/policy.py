@@ -71,3 +71,27 @@ class ExecutionPolicy:
     def __post_init__(self):
         for field in _ALLOWED:
             check_value(field, getattr(self, field))
+
+
+def resolve_policy(policy: ExecutionPolicy | None = None, *,
+                   mode: str | None = None,
+                   probe_impl: str | None = None,
+                   schedule: str | None = None,
+                   **overrides) -> ExecutionPolicy:
+    """Merge an explicit policy with the legacy ``mode=`` /
+    ``probe_impl=`` / ``schedule=`` keywords (``probe_impl`` is the
+    policy's ``kernel``: ``"torch"`` or ``"cuda"``).  A keyword that
+    disagrees with an explicit ``policy`` raises ``ValueError``: silent
+    precedence would make the policy lie about how the engine runs."""
+    legacy = {"mode": mode, "kernel": probe_impl, "schedule": schedule}
+    legacy.update(overrides)
+    legacy = {k: v for k, v in legacy.items() if v is not None}
+    if policy is None:
+        return ExecutionPolicy(**legacy)
+    conflicts = {k: v for k, v in legacy.items()
+                 if getattr(policy, k) != v}
+    if conflicts:
+        raise ValueError(
+            f"policy={policy} conflicts with legacy kwargs {conflicts}; "
+            f"pass one or the other")
+    return policy

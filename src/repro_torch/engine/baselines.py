@@ -9,9 +9,11 @@ PyTorch port of ``repro.engine.baselines``' PK joins:
                                       pure overhead on PIM), then probe.
 
 Both return ``(found, dim_row)`` per fact row, ``dim_row == -1`` on a miss.
+``numpy_join_oracle`` is the general (duplicates allowed) host oracle.
 """
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 
@@ -48,3 +50,16 @@ def partitioned_hash_join_unique(fact_keys: torch.Tensor,
     row = torch.full_like(row_s, -1)
     row[f_ord] = row_s
     return found, row
+
+
+def numpy_join_oracle(fact_keys: np.ndarray,
+                      dim_keys: np.ndarray) -> set[tuple[int, int]]:
+    """All (fact_row, dim_row) match pairs: general (duplicates allowed)."""
+    out: set[tuple[int, int]] = set()
+    by_key: dict[int, list[int]] = {}
+    for j, k in enumerate(np.asarray(dim_keys).tolist()):
+        by_key.setdefault(k, []).append(j)
+    for i, k in enumerate(np.asarray(fact_keys).tolist()):
+        for j in by_key.get(k, ()):
+            out.add((i, j))
+    return out

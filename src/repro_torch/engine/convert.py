@@ -26,9 +26,14 @@ _TABLE_ARRAYS = ("keys", "values", "dup_offsets", "dup_indices",
 
 
 def tables_from_numpy(cols_by_table: Mapping[str, Mapping[str, np.ndarray]],
-                      device) -> dict[str, Table]:
-    """``{table: {column: array}}`` -> port tables on ``device``."""
-    return {name: Table.from_numpy(cols, device)
+                      device, valid_rows: Mapping[str, int | None] | None
+                      = None) -> dict[str, Table]:
+    """``{table: {column: array}}`` -> port tables on ``device``.
+    ``valid_rows[table]`` carries a capacity-padded table's logical row
+    count (the JAX package's ``Table.valid_rows``) across; the padding
+    rows come with the arrays, so ``n_physical`` is the same."""
+    valid_rows = valid_rows or {}
+    return {name: Table.from_numpy(cols, device, valid_rows.get(name))
             for name, cols in cols_by_table.items()}
 
 

@@ -1,9 +1,9 @@
 """JSPIM join integration for the column-store engine.
 
-PyTorch port of ``repro.engine.join`` without the fact-side tail probes
-and the sharded probe.  A ``DimIndex`` is the paper's persistent auxiliary
-structure: dictionary + hash table + duplication list, built once per
-(dimension table, key column) and maintained across queries (§3.2.3):
+PyTorch port of ``repro.engine.join`` without the sharded probe.  A
+``DimIndex`` is the paper's persistent auxiliary structure: dictionary +
+hash table + duplication list, built once per (dimension table, key
+column) and maintained across queries (§3.2.3):
 ``ingest_index`` buffers ops in a delta side-table, probes overlay it, and
 ``compact_index`` folds it back.  Probes run through the hand-written CUDA
 kernels (``impl="cuda"``; their plain versions on CPU tensors) or the
@@ -19,6 +19,8 @@ JAX package picks 128 on a TPU, one VMEM lane row.)
 index is probed with (``build_dim_index(fact_keys=)``), the input of the
 probe-schedule planner.  ``lookup`` runs every schedule: gathered,
 stream, deduped and hot/cold (``plan=`` and ``hot_codes=``).
+``tail_lookup`` and ``extend_cached_probe`` probe only an appended fact
+tail, under the same plan, and splice it into a cached probe.
 """
 from __future__ import annotations
 
@@ -38,7 +40,8 @@ from repro_torch.core.hash_table import (JSPIMTable, build_table,
                                          suggest_num_buckets, table_entries)
 from repro_torch.core.lookup import (JoinResult, ProbeResult,
                                      build_hot_table, join, overlay_delta,
-                                     probe, probe_deduped, probe_hot_cold)
+                                     probe, probe_deduped, probe_hot_cold,
+                                     splice_probe)
 from repro_torch.core.planner import SchedulePlan
 from repro_torch.core.skew import SkewStats, measure_skew
 from repro_torch.kernels.ops import (delta_slot_words, probe_table,
@@ -329,6 +332,53 @@ def lookup_filtered(index: DimIndex, fact_keys: torch.Tensor,
         & (pr.payload >= 0) & (pr.payload < n)
     keep = torch.where(pr.is_dup, True, row_ok)
     return ProbeResult(pr.found & keep, pr.payload, pr.is_dup)
+
+
+# ---------------------------------------------------------------------------
+# Fact-side streaming append: tail-only probes + probe-cache extension
+# ---------------------------------------------------------------------------
+
+
+def found_rows(pr: ProbeResult) -> tuple[torch.Tensor, torch.Tensor]:
+    """The engine's cached-probe form of a probe result: ``(found,
+    dim_row)`` with ``dim_row == -1`` on misses."""
+    return pr.found, torch.where(pr.found, pr.payload, -1)
+
+
+def tail_lookup(index: DimIndex, tail_keys: torch.Tensor,
+                hot_codes: torch.Tensor | None = None, *, impl: str = "cuda",
+                plan: SchedulePlan | None = None
+                ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Probe only an appended fact tail under the already-planned schedule.
+
+    ``tail_keys`` is the pow2-padded append batch (padding = ``EMPTY_KEY``,
+    a miss on every schedule and through the delta overlay).  Returns the
+    engine's cached-probe representation: ``(found, dim_row)`` with
+    ``dim_row == -1`` on misses.
+    """
+    m = tail_keys.shape[0]
+    if plan is not None and plan.cold_capacity > m:
+        # a hot/cold plan's cold stream is sized to the whole fact stream;
+        # the tail's cold probes are at most its length (the same answers,
+        # and O(tail) work: what ``tail_extend_seconds`` prices)
+        plan = dataclasses.replace(plan, cold_capacity=m)
+    return found_rows(lookup(index, tail_keys, impl=impl, plan=plan,
+                             hot_codes=hot_codes))
+
+
+def extend_cached_probe(index: DimIndex, found: torch.Tensor,
+                        row: torch.Tensor, tail_keys: torch.Tensor,
+                        start: int, hot_codes: torch.Tensor | None = None, *,
+                        impl: str = "cuda", plan: SchedulePlan | None = None,
+                        owned: bool = False
+                        ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Tail probe plus cache splice: probes ``tail_keys`` (the padded
+    append batch, delta overlay included) and writes the window into the
+    cached ``(found, dim_row)`` at ``start``, without re-probing the rows
+    already cached.  With ``owned`` (the caller holds the only reference)
+    the cached tensors are written in place; otherwise copies are."""
+    tf, tr = tail_lookup(index, tail_keys, hot_codes, impl=impl, plan=plan)
+    return splice_probe((found, row), (tf, tr), start, owned=owned)
 
 
 def join_pairs(index: DimIndex, fact_keys: torch.Tensor, *, capacity: int,

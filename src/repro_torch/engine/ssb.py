@@ -4,12 +4,14 @@ The port's own copy of ``repro.engine.ssb``'s generator: the same numpy
 draws in the same order, so the same ``sf``/``seed`` gives byte-identical
 arrays.  Integer-coded columns; row counts follow the paper's linear
 scaling: lineorder 6,000,000×SF; customer 30,000×SF; supplier 2,000×SF;
-part 200,000×SF; date 2,556 (7 years of days, fixed).  ``random_mutation``
-draws the dimension-mutation stream the differential tests replay.
+part 200,000×SF; date 2,556 (7 years of days, fixed).
+``generate_fact_batch`` draws one lineorder append batch, and
+``random_mutation`` the mutation stream the differential tests replay.
 """
 from __future__ import annotations
 
 import numpy as np
+import torch
 
 from repro_torch.engine.table import Table, resolve_device
 
@@ -33,6 +35,11 @@ def _dates(rng: np.random.Generator) -> dict:
         "yearmonthnum": (year * 100 + month).astype(np.int32),
         "weeknuminyear": ((datekey % 365) // 7 + 1).astype(np.int32),
     }
+
+
+LINEORDER_COLUMNS = ("orderkey", "custkey", "partkey", "suppkey",
+                     "orderdate", "quantity", "discount", "extendedprice",
+                     "revenue", "supplycost")
 
 
 def ssb_sizes(sf: float) -> dict[str, int]:
@@ -131,23 +138,49 @@ def generate_ssb_dims(sf: float, seed: int = 0,
     return {name: Table.from_numpy(cols, dev) for name, cols in dims.items()}
 
 
-def random_mutation(engine, rng: np.random.Generator, *,
-                    kinds=("ingest", "delete", "append_rows", "compact")
-                    ) -> tuple[str, dict]:
-    """Draw one randomized dimension mutation, apply it to ``engine`` and
-    return ``(kind, detail)`` so that a differential harness can mirror it.
+def generate_fact_batch(tables, n: int,
+                        rng: np.random.Generator) -> dict[str, np.ndarray]:
+    """One lineorder append batch against the current tables, with the
+    JAX package's draws: FK columns re-sample live fact rows (keeping the
+    generated skew), measures are drawn fresh.  The sampled rows are
+    gathered where the table lives; only the batch crosses to the host."""
+    fact = tables["lineorder"]
+    idx = rng.integers(0, fact.n_rows, n)
+    sel = torch.as_tensor(idx, device=fact.device)
+    cols = {k: fact[k][sel].cpu().numpy() for k in fact.names()}
+    q = rng.integers(1, 51, n, dtype=np.int32)
+    d = rng.integers(0, 11, n, dtype=np.int32)
+    ep = rng.integers(100, 100_000, n, dtype=np.int32)
+    cols["orderkey"] = np.arange(fact.n_rows, fact.n_rows + n,
+                                 dtype=np.int32)
+    cols["quantity"], cols["discount"], cols["extendedprice"] = q, d, ep
+    cols["revenue"] = (ep * (100 - d) // 100).astype(np.int32)
+    cols["supplycost"] = (ep * 6 // 10).astype(np.int32)
+    return cols
 
-    The JAX package's ``random_mutation`` restricted to the dimension
-    kinds: upserts (some re-pointed past the table's end), deletes,
-    dimension growth and compaction.  It makes the same ``rng`` draws, so
-    one seed and the same ``kinds`` give the same stream in both packages.
-    Every ingest runs with ``auto_compact=False``.
+
+def random_mutation(engine, rng: np.random.Generator, *,
+                    fact_batch: int = 64,
+                    kinds=("append_fact_rows", "ingest", "delete",
+                           "append_rows", "compact")) -> tuple[str, dict]:
+    """Draw one randomized mutation, apply it to ``engine`` and return
+    ``(kind, detail)`` so that a differential harness can mirror it.
+
+    The JAX package's ``random_mutation``: fact appends of ``fact_batch``
+    rows, dimension upserts (some re-pointed past the table's end),
+    deletes, dimension growth and compaction.  It makes the same ``rng``
+    draws, so one seed and the same ``kinds`` give the same stream in both
+    packages.  Every ingest runs with ``auto_compact=False``.
     """
     from repro_torch.engine.queries import DIM_PK
 
     kind = kinds[int(rng.integers(0, len(kinds)))]
     dim = ("customer", "supplier", "part",
            "date")[int(rng.integers(0, 4))]
+    if kind == "append_fact_rows":
+        cols = generate_fact_batch(engine.tables, fact_batch, rng)
+        engine.append_fact_rows(cols)
+        return kind, {"rows": cols}
     if kind in ("ingest", "delete"):
         pk = engine.tables[dim][DIM_PK[dim]].cpu().numpy()
         n = int(rng.integers(1, 9))
@@ -172,7 +205,6 @@ def random_mutation(engine, rng: np.random.Generator, *,
         engine.append_rows(dim, rows, auto_compact=False)
         return kind, {"dim": dim, "rows": rows}
     if kind != "compact":
-        raise ValueError(f"unknown mutation kind {kind!r} (the fact append "
-                         "waits for its slice)")
+        raise ValueError(f"unknown mutation kind {kind!r}")
     engine.compact(dim)
     return "compact", {"dim": dim}

@@ -12,10 +12,11 @@ from repro_torch.kernels.coalesce_window import (coalesce_window_mask,
                                                  coalesce_window_mask_plain)
 from repro_torch.kernels.fused_query import fused_query, fused_query_plain
 from repro_torch.kernels.ops import (KERNEL_REGISTRY, KernelOp,
-                                     delta_slot_words, probe_table,
-                                     probe_table_filtered,
+                                     delta_slot_words, kernel_supported,
+                                     probe_table, probe_table_filtered,
                                      probe_table_filtered_delta,
-                                     register_kernel, slot_predicate)
+                                     probe_table_ref, register_kernel,
+                                     slot_predicate)
 from repro_torch.kernels.ref import (NULL_WORD, bucket_probe_ref,
                                      fused_query_ref,
                                      probe_filter_rows_delta_ref,
@@ -29,8 +30,9 @@ __all__ = ["bucket_probe_stream", "bucket_probe_stream_plain",
            "probe_rows", "probe_rows_plain", "coalesce_window_mask",
            "coalesce_window_mask_plain", "fused_query",
            "fused_query_plain", "KERNEL_REGISTRY", "KernelOp",
-           "delta_slot_words", "probe_table", "probe_table_filtered",
-           "probe_table_filtered_delta", "register_kernel", "slot_predicate",
+           "delta_slot_words", "kernel_supported", "probe_table",
+           "probe_table_filtered", "probe_table_filtered_delta",
+           "probe_table_ref", "register_kernel", "slot_predicate",
            "NULL_WORD", "bucket_probe_ref", "fused_query_ref",
            "probe_filter_rows_delta_ref", "probe_filter_rows_ref",
            "probe_rows_ref", "segment_sum", "unpack_words"]

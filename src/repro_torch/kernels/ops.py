@@ -5,14 +5,17 @@ are what ``engine/join.py`` calls on the ``"cuda"`` kernel.  Each hands the
 table planes and the table's hash mode to its kernel (``probe_rows`` on the
 gathered schedule, ``bucket_probe_stream`` on the stream schedule, the
 filter kernels), which hashes each key and gathers each bucket row itself:
-no bucket-id vector is made.
+no bucket-id vector is made.  ``probe_table_ref`` is the plain reference
+probe with the same signature.
 
 ``KERNEL_REGISTRY`` lists every hand-written kernel with its plain version,
-the TPU kernel it replaces and deterministic operand cases.  The cases are
-the JAX registry's (``repro/kernels/ops.py``), drawn from the same numpy
-seeds and built with the port's own ``core/delta.py``, in the port's
-calling convention: table planes plus the hash mode instead of gathered
-rows.  ``coalesce_window_mask`` adds a Zipf stream to the reference's case.
+the TPU kernel it replaces and deterministic operand cases, and
+``kernel_supported`` reports whether it holds a kernel for a backend.  The
+cases are the JAX registry's (``repro/kernels/ops.py``), drawn from the
+same numpy seeds and built with the port's own ``core/delta.py``, in the
+port's calling convention: table planes plus the hash mode instead of
+gathered rows.  ``coalesce_window_mask`` adds a Zipf stream to the
+reference's case.
 """
 from __future__ import annotations
 
@@ -25,7 +28,7 @@ import torch
 from repro_torch.core.delta import (TOMBSTONE, DeltaTable, delete_batch,
                                     empty_delta, upsert_batch)
 from repro_torch.core.hash_table import (EMPTY_KEY, HASH_FIBONACCI,
-                                         JSPIMTable, build_table)
+                                         JSPIMTable, build_table, hash_bucket)
 from repro_torch.core.lookup import NULL_WORD, ProbeResult, unpack_words
 from repro_torch.core.skew import zipf_sample
 from repro_torch.kernels.bucket_probe import (
@@ -35,6 +38,7 @@ from repro_torch.kernels.bucket_probe import (
 from repro_torch.kernels.coalesce_window import (coalesce_window_mask,
                                                  coalesce_window_mask_plain)
 from repro_torch.kernels.fused_query import fused_query, fused_query_plain
+from repro_torch.kernels.ref import bucket_probe_ref
 
 
 def probe_table(table: JSPIMTable, probe_keys: torch.Tensor, *,
@@ -56,6 +60,15 @@ def probe_table(table: JSPIMTable, probe_keys: torch.Tensor, *,
     else:
         raise ValueError(f"unknown schedule {schedule!r}")
     return unpack_words(words)
+
+
+def probe_table_ref(table: JSPIMTable, probe_keys: torch.Tensor
+                    ) -> ProbeResult:
+    """The plain reference probe, with ``probe_table``'s signature."""
+    keys = probe_keys.to(torch.int32)
+    bids = hash_bucket(keys, table.num_buckets, table.hash_mode)
+    return unpack_words(bucket_probe_ref(table.keys, table.values, keys,
+                                         bids))
 
 
 def slot_predicate(table: JSPIMTable, dim_mask: torch.Tensor) -> torch.Tensor:
@@ -148,6 +161,14 @@ def register_kernel(op: KernelOp) -> KernelOp:
         raise ValueError(f"kernel {op.name!r} already registered")
     KERNEL_REGISTRY[op.name] = op
     return op
+
+
+def kernel_supported(name: str, backend: str) -> bool:
+    """True when the registry holds kernel ``name`` for ``backend`` (an
+    unknown kernel reports False).  It reports; no path consults it to
+    choose a slower one."""
+    op = KERNEL_REGISTRY.get(name)
+    return op is not None and backend in op.backends
 
 
 def _t(a, device) -> torch.Tensor:
