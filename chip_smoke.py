@@ -76,6 +76,35 @@ Phases (each raises on failure; nothing is caught):
    with the same dimension ops, and ``probe_filter_rows_delta``
    (EMPTY_KEY raw keys against EMPTY_KEY-padded delta planes) and
    ``fused_query`` are held against their plain versions there.
+6c. Snapshots and serving: a fresh gathered engine on phase 4's tables
+   takes ``warm_cache()`` and a snapshot S0, then on the head two
+   ``append_fact_rows`` of 1% of the fact table (seed+3; the first grows
+   the capacity, the second writes in place: S0 pins an older
+   generation), deletes and upserts of 0.5% of part's and customer's keys
+   and ``compact("part")`` (the swap flavor: S0 pins part's planes,
+   ``pin_copies`` +1, S0's planes unchanged).  S0's 13 answers, cached,
+   cold and mega, equal phase 4's; the head's and a snapshot S1's equal
+   an engine rebuilt on the trimmed tables with the same dimension ops.
+   An append with S1 live copies (``pin_copies`` +1, a new fact
+   generation) and S1 still answers as before; after both are released
+   an append writes in place (same buffers, same generation, no copy),
+   and another part batch is compacted in place (same planes), again
+   equal to a rebuilt engine.  ``prepare_compact``/``publish_compact``
+   publishes customer's delta, and refuses supplier's after a
+   conflicting ingest.  Every read's launches equal the fixed counts.
+   Then a ``QueryScheduler`` serves 13 queries x 8 parameter vectors
+   sampled with seed+3 through ``pump()``, once on the engine (the
+   "batch" flavor: one lazy ``probe_rows`` per dimension on its pinned
+   snapshot) and once on an engine with ``fusion="mega"`` (one
+   ``probe_rows`` per joined dimension per dispatch); every answer equals
+   the "composed" flavor's, and Q1.1's and Q2.1's equal ``LogicalModel``
+   on the host arrays.  A last pass serves the same requests while
+   ``compact_in_background("customer")`` folds a fresh delta: every
+   response is ok and equals the snapshot at its epoch.  Printed:
+   ``[mvcc]`` (ms per ``snapshot()``, the four appends, the swap and
+   in-place compactions, peak memory beside the static path's) and
+   ``[serve]`` (requests per second per flavor, wall ms per dispatch at
+   widths 1, 4, 8), and the phase's seconds.
 7. Skew path (the JAX package's ``benchmarks/skew_sweep.py`` at SSB SF10
    sizes): a 2,000,000-key dimension with part's geometry, probed by
    60,000,000 Zipf(s) keys for s in the paper's grid {0, 0.5, 1.5, 2}.
@@ -1146,6 +1175,374 @@ def main() -> int:
         "n_rows": fa.tables["lineorder"].n_rows, "n_physical": n_phys}
     del fa, lv, res_a, res_lv, batches, host
     torch.cuda.empty_cache()
+
+    # -- 6c. snapshots and serving --------------------------------------------
+    t_6c = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    resident_6c = torch.cuda.memory_allocated()  # held from earlier phases
+    rng = np.random.default_rng(args.seed + 3)
+    mv = SSBEngine(tables)
+    mv.warm_cache()
+    sync()
+    mv_ops = []       # the dimension ops, replayed on rebuilt engines
+    upserted = {d: [] for d in DIM_PK}
+    mvcc = {"append": {}, "compact": {}}
+    launches_6c = dict(_ZERO)
+
+    def counted6(fn):
+        """``counted``, with the counts added to the phase's total."""
+        out, got = counted(fn)
+        for k, v in got.items():
+            launches_6c[k] += v
+        return out, got
+    filtered = {d: sum(d in SSB_QUERIES[q].dim_filters for q in names)
+                for d in DIM_PK}
+
+    def snap_ms(reps=10):
+        """ms per ``snapshot()`` on ``mv`` (each released at once)."""
+        out = []
+        for _ in range(reps):
+            t = time.perf_counter()
+            s = mv.snapshot()
+            out.append((time.perf_counter() - t) * 1e3)
+            s.release()
+        return out
+
+    def drive_snap(snap):
+        """A snapshot's three paths: cached run_all on its frozen cache,
+        cold and mega per query."""
+        out = {"cached": snap.run_all(fusion="composed"),
+               "cold": {q: snap.run(q, use_cache=False) for q in names},
+               "mega": {q: snap.run(q, fusion="mega") for q in names}}
+        sync()
+        return out
+
+    def live_expected(delta_dims, cached_probes):
+        """Launches of the cached, cold and mega paths with live deltas on
+        ``delta_dims``: a filtered cold probe of such a dimension takes
+        probe_filter_rows_delta (two pack_bits), others probe_filter_rows;
+        ``cached_probes`` probe_rows for the cached path, 4 for the cold
+        path's unfiltered probes."""
+        fd = sum(filtered[d] for d in delta_dims)
+        return dict(_ZERO, probe_rows=cached_probes + 4,
+                    probe_filter_rows=32 - fd, probe_filter_rows_delta=fd,
+                    pack_bits=32 + fd, fused_query=13, pack_query_bits=13)
+
+    def mv_append(label):
+        """One append on ``mv`` (4 probe_rows), timed; returns the pin
+        counters' change, whether the fact buffers moved, the report."""
+        info0 = mv.snapshot_info()
+        ptr0 = mv.tables["lineorder"]["orderkey"].data_ptr()
+        batch = generate_fact_batch(mv.tables, n_batch, rng)
+        box = []
+        secs, got = counted6(lambda: timed_call(
+            lambda: box.append(mv.append_fact_rows(batch))))
+        rep = box[0]
+        check_counts(got, EXPECTED_APPEND, f"mvcc append {label}", quiet=True)
+        info = mv.snapshot_info()
+        mvcc["append"][label] = round(secs * 1e3, 3)
+        return (info["pin_copies"] - info0["pin_copies"],
+                info["fact_gen"] - info0["fact_gen"],
+                mv.tables["lineorder"]["orderkey"].data_ptr() != ptr0, rep)
+
+    def dim_ops(dim):
+        """Deletes then upserts (to rows inside the table) of
+        MUTATION_FRAC of ``dim``'s keys on ``mv``, recorded for the
+        replays.  No delete touches a key an earlier batch upserted (the
+        host oracle resolves a delete after an upsert as the upsert)."""
+        pk = mv.tables[dim][DIM_PK[dim]].cpu().numpy()
+        n = pk.shape[0]
+        k = max(1, int(n * MUTATION_FRAC))
+        pool = np.setdiff1d(pk, np.asarray(upserted[dim], pk.dtype))
+        dels = rng.choice(pool, k, replace=False).astype(np.int32)
+        ups = rng.choice(pk, k, replace=False).astype(np.int32)
+        pays = rng.integers(0, n, k, dtype=np.int32)
+        mv.ingest(dim, dels, op="delete", auto_compact=False)
+        mv.ingest(dim, ups, pays, op="upsert", auto_compact=False)
+        mv_ops.append(("ingest", dim, dels, ups, pays))
+        upserted[dim].extend(ups.tolist())
+
+    def compact_mv(dim, label):
+        secs = timed_call(lambda: mv.compact(dim))
+        mvcc["compact"][label] = round(secs * 1e3, 3)
+        mv_ops.append(("compact", dim))
+
+    def replay(eng):
+        for op in mv_ops:
+            if op[0] == "ingest":
+                _, dim, dels, ups, pays = op
+                eng.ingest(dim, dels, op="delete", auto_compact=False)
+                eng.ingest(dim, ups, pays, op="upsert", auto_compact=False)
+            else:
+                eng.compact(op[1])
+
+    mvcc["snapshot_ms"] = snap_ms()
+    s0 = mv.snapshot()
+    # the first append grows the capacity (fresh buffers whatever the
+    # pins); the second writes those in place: S0 pins an older generation
+    pc, gen, moved, rep = mv_append("growth, S0 live")
+    if (pc, gen, moved, rep["capacity_grew"]) != (0, 1, True, True):
+        raise AssertionError(f"first append: pin copies {pc}, fact gen "
+                             f"+{gen}, moved {moved}, {rep}")
+    pc, gen, moved, rep = mv_append("in place, S0 on an older generation")
+    if (pc, gen, moved, rep["capacity_grew"]) != (0, 0, False, False):
+        raise AssertionError(f"second append: pin copies {pc}, fact gen "
+                             f"+{gen}, moved {moved}, {rep}")
+    dim_ops("part")
+    dim_ops("customer")
+    planes = mv.indexes["part"].table.keys
+    planes_copy = planes.clone()
+    pc0 = mv.snapshot_info()["pin_copies"]
+    compact_mv("part", "swap (pinned by S0)")
+    if mv.snapshot_info()["pin_copies"] != pc0 + 1 or \
+            mv.indexes["part"].table.keys is planes or \
+            not torch.equal(planes, planes_copy):
+        raise AssertionError("the pinned compaction did not swap")
+    del planes_copy
+    # S0 answers as phase 4, on every path
+    res_s0, got = counted6(lambda: drive_snap(s0))
+    check_counts(got, dict(EXPECTED_LAUNCHES, probe_rows=4),
+                 "mvcc: S0 after the mutations")
+    check_agree(res_s0, res["cached"], ("cached", "cold", "mega"),
+                "S0 against phase 4")
+    log(f"[agree] S0 (epoch {s0.epoch}, lag {s0.epoch_lag()}): all "
+        f"{len(names)} queries, cached, cold and mega, equal phase 4's, "
+        "bit for bit")
+    # the head, then S1 on its image
+    (res_head, _), got = counted6(lambda: drive_paths(mv, PATHS))
+    want_head = live_expected(("customer",), 4)
+    check_counts(got, want_head, "mvcc: head, customer's delta live")
+    s1 = mv.snapshot()
+    res_s1, got = counted6(lambda: drive_snap(s1))
+    check_counts(got, live_expected(("customer",), 0), "mvcc: S1")
+    rebuilt = rebuilt_answers(mv, replay)
+    check_agree(res_head, rebuilt, ("cached", "cached_warm", "cold", "mega"),
+                "head against the rebuilt engine")
+    check_agree(res_s1, rebuilt, ("cached", "cold", "mega"),
+                "S1 against the rebuilt engine")
+    log(f"[agree] head and S1 (epoch {s1.epoch}): all {len(names)} queries, "
+        "every path, equal an engine rebuilt on the trimmed tables with "
+        "the same dimension ops, bit for bit")
+    pc, gen, moved, _ = mv_append("pinned copy, S1 live")
+    if (pc, gen, moved) != (1, 1, True):
+        raise AssertionError(f"pinned append: pin copies {pc}, fact gen "
+                             f"+{gen}, moved {moved}")
+    res_s1b, _ = counted6(lambda: drive_snap(s1))
+    check_agree(res_s1b, rebuilt, ("cached", "cold", "mega"),
+                "S1 after a pinned append")
+    del res_s0, res_s1, res_s1b, rebuilt
+    s0.release()
+    s1.release()
+    if mv.snapshot_info()["live_snapshots"] != 0:
+        raise AssertionError("snapshots still live after release")
+    pc, gen, moved, _ = mv_append("in place, released")
+    if (pc, gen, moved) != (0, 0, False):
+        raise AssertionError(f"append after release: pin copies {pc}, fact "
+                             f"gen +{gen}, moved {moved}")
+    dim_ops("part")
+    planes = mv.indexes["part"].table.keys
+    pc0 = mv.snapshot_info()["pin_copies"]
+    compact_mv("part", "in place")
+    if mv.snapshot_info()["pin_copies"] != pc0 or \
+            mv.indexes["part"].table.keys is not planes:
+        raise AssertionError("the unpinned compaction did not write in "
+                             "place")
+    (res_ip, _), got = counted6(lambda: drive_paths(mv, PATHS))
+    check_counts(got, want_head, "mvcc: head after the in-place compaction")
+    check_agree(res_ip, rebuilt_answers(mv, replay),
+                ("cached", "cached_warm", "cold", "mega"),
+                "in-place compaction against the rebuilt engine")
+    log(f"[agree] after release, an in-place append and an in-place "
+        f"compaction: all {len(names)} queries, every path, equal a "
+        "rebuilt engine's, bit for bit")
+    # background compaction's two halves: publish, then a conflict
+    t = time.perf_counter()
+    prep = mv.prepare_compact("customer")
+    sync()
+    mvcc["prepare_ms"] = round((time.perf_counter() - t) * 1e3, 3)
+    epoch = mv.epoch
+    t = time.perf_counter()
+    if not mv.publish_compact(prep) or mv.epoch != epoch + 1 or \
+            mv.indexes["customer"].delta is not None:
+        raise AssertionError("publish_compact on a fresh delta did not "
+                             "publish")
+    mvcc["publish_ms"] = round((time.perf_counter() - t) * 1e3, 3)
+    mv_ops.append(("compact", "customer"))
+    dim_ops("supplier")
+    prep = mv.prepare_compact("supplier")
+    dim_ops("supplier")
+    if mv.publish_compact(prep) is not False:
+        raise AssertionError("a conflicting ingest did not stop the publish")
+    log("[mvcc] prepare_compact/publish_compact: customer published "
+        f"(epoch {epoch} -> {epoch + 1}); supplier's publish refused after "
+        "a conflicting ingest; supplier's delta stays live")
+    del prep, res_ip
+    mvcc["peak"] = torch.cuda.max_memory_allocated()
+
+    # -- serving: the batch flavor (the engine's composed policy) and mega
+    from repro_torch.serving import (PARAM_QUERIES, BatchRunner,
+                                     LogicalModel, QueryScheduler,
+                                     ServeConfig)
+    prng = np.random.default_rng(args.seed + 3)
+    per_query = 8
+    requests = [(q, PARAM_QUERIES[q].sample(prng)) for q in names
+                for _ in range(per_query)]
+    mv.invalidate_probe_cache()  # the pinned snapshot probes lazily
+    ref_snap = mv.snapshot()
+    composed = {}
+    for q, p in requests:
+        [composed[(q, p)]] = BatchRunner().run_batch(ref_snap, q, [p],
+                                                     flavor="composed")
+    serve = {"rps": {}, "ms": {}}
+
+    def check_clean(info, tickets, label):
+        """No retry, failure, composed fallback, rejection, timeout, dead
+        worker, breaker trip or degraded response: the scheduler retries a
+        failed launch and ladders to the composed flavor, which would
+        hide a kernel fault behind a right answer."""
+        bad = {k: info[k] for k in ("retries", "failed", "composed_batches",
+                                    "rejected", "timed_out",
+                                    "refresh_failures", "worker_deaths",
+                                    "breaker_trips") if info[k] != 0}
+        degraded = sum(tk.response.degraded for tk in tickets)
+        if bad or degraded or info["breakers_open"]:
+            raise AssertionError(f"serving {label}: {json.dumps(bad)}, "
+                                 f"{degraded} degraded responses, breakers "
+                                 f"open {info['breakers_open']}")
+    mv_mega = SSBEngine(mv.tables, indexes=mv.indexes,
+                        policy=ExecutionPolicy(fusion="mega"))
+    joined = sum(len(SSB_QUERIES[q].joined_dims()) for q in names)
+    for label, eng, want in (
+            ("batch", mv, dict(_ZERO, probe_rows=len(DIM_PK))),
+            ("mega", mv_mega, dict(_ZERO, probe_rows=joined))):
+        sched = QueryScheduler(eng, ServeConfig(max_queue=len(requests)))
+        tickets = [sched.submit(q, p) for q, p in requests]
+        t = time.perf_counter()
+        _, got = counted6(sched.pump)
+        sync()
+        secs = time.perf_counter() - t
+        check_counts(got, want, f"serving, {label} flavor")
+        info = sched.info()
+        sched.close()
+        if info["batches"] != len(names) or info["completed"] != \
+                len(requests):
+            raise AssertionError(f"serving {label}: {json.dumps(info)}")
+        check_clean(info, tickets, label)
+        for tk, (q, p) in zip(tickets, requests):
+            r = tk.response
+            total, groups = composed[(q, p)]
+            if not r.ok or r.total != total or \
+                    not np.array_equal(r.groups, groups):
+                raise AssertionError(f"serving {label}: {q}{p} differs from "
+                                     f"the composed flavor ({r.status})")
+        serve["rps"][label] = len(requests) / secs
+    del mv_mega
+    log(f"[agree] serving: {len(requests)} requests ({per_query} sampled "
+        f"parameter vectors x {len(names)} queries) on the batch and mega "
+        "flavors equal the composed flavor's, bit for bit")
+    model = LogicalModel(mv.tables)
+    for op in mv_ops:
+        if op[0] == "ingest":
+            _, dim, dels, ups, pays = op
+            model.delete_keys(dim, dels)
+            for k, r in zip(ups.tolist(), pays.tolist()):
+                model.repoint(dim, k, r)
+    for q, p in requests:
+        if q in ("Q1.1", "Q2.1"):
+            total, groups = model.param_query(q, p)
+            if total != composed[(q, p)][0] or \
+                    not np.array_equal(groups, composed[(q, p)][1]):
+                raise AssertionError(f"{q}{p} differs from LogicalModel")
+    del model
+    log(f"[numpy] serving: Q1.1 and Q2.1 at all {2 * per_query} sampled "
+        "parameter vectors equal LogicalModel on the host arrays")
+    for f in ("batch", "mega", "composed"):
+        for w in (1, 4, 8):
+            per = {}
+            for q in ("Q1.1", "Q2.1", "Q3.1", "Q4.3"):
+                ps = [p for q2, p in requests if q2 == q][:w]
+                BatchRunner().run_batch(ref_snap, q, ps, flavor=f)
+                sync()
+                per[q] = round(min(timed_call(lambda: BatchRunner().run_batch(
+                    ref_snap, q, ps, flavor=f)) for _ in range(2)) * 1e3, 3)
+            serve["ms"][(f, w)] = per
+    ref_snap.release()
+    # a second pass with a background compaction of customer's delta
+    dim_ops("customer")
+    snaps = {mv.epoch: mv.snapshot()}
+    sched = QueryScheduler(mv, ServeConfig(max_queue=len(requests)))
+    half = len(requests) // 2
+    tickets = [sched.submit(q, p) for q, p in requests[:half]]
+    bg = sched.compact_in_background("customer")
+    _, got_bg = counted6(sched.pump)
+    tickets += [sched.submit(q, p) for q, p in requests[half:]]
+    bg.join(timeout=120.0)
+    if bg.is_alive():
+        raise AssertionError("the background compaction did not finish")
+    _, got = counted6(sched.pump)
+    for k, v in got.items():
+        got_bg[k] += v
+    info = sched.info()
+    sched.close()
+    snaps[mv.epoch] = mv.snapshot()
+    if info["bg_compactions"] != 1 or info["bg_compact_conflicts"] != 0 \
+            or mv.indexes["customer"].delta is not None:
+        raise AssertionError(f"background compaction: {json.dumps(info)}")
+    check_clean(info, tickets, "beside compact_in_background")
+    # each snapshot the scheduler pinned probes, once, every dimension the
+    # queries it answered join (the merge itself launches no kernel)
+    joined_at = {}
+    for tk, (q, p) in zip(tickets, requests):
+        joined_at.setdefault(tk.response.epoch, set()).update(
+            SSB_QUERIES[q].joined_dims())
+    check_counts(got_bg, dict(_ZERO, probe_rows=sum(
+        len(d) for d in joined_at.values())),
+        "serving beside compact_in_background")
+    lags = {}
+    for tk, (q, p) in zip(tickets, requests):
+        r = tk.response
+        if not r.ok or r.epoch not in snaps:
+            raise AssertionError(f"background pass: {q}{p} {r.status} at "
+                                 f"epoch {r.epoch}")
+        [(total, groups)] = BatchRunner().run_batch(snaps[r.epoch], q, [p],
+                                                    flavor="composed")
+        if r.total != total or not np.array_equal(r.groups, groups):
+            raise AssertionError(f"background pass: {q}{p} differs from "
+                                 f"the snapshot at its epoch {r.epoch}")
+        key = f"epoch {r.epoch} lag {r.epoch_lag}"
+        lags[key] = lags.get(key, 0) + 1
+    for s in snaps.values():
+        s.release()
+    serve["bg"] = lags
+    log(f"[agree] serving beside compact_in_background('customer'): all "
+        f"{len(tickets)} responses ok and equal to the snapshot at their "
+        f"epoch, bit for bit: {json.dumps(lags)}")
+    del mv, snaps
+    torch.cuda.empty_cache()
+    secs_6c = time.perf_counter() - t_6c
+    log(f"[mvcc] {smi}: ms per snapshot() on a warm SF{args.sf:g} engine "
+        f"({len(mvcc['snapshot_ms'])} calls): "
+        f"{json.dumps([round(x, 4) for x in mvcc['snapshot_ms']])}")
+    log(f"[mvcc] {smi}: ms per append_fact_rows of {n_batch} rows (host "
+        f"clock ending in synchronize): {json.dumps(mvcc['append'])}")
+    log(f"[mvcc] {smi}: ms per compact('part') (host clock): "
+        f"{json.dumps(mvcc['compact'])}; prepare_compact('customer') "
+        f"{mvcc['prepare_ms']} ms, publish_compact {mvcc['publish_ms']} ms")
+    log(f"[mvcc] peak allocated over phase 6c: {mvcc['peak']} bytes "
+        f"({mvcc['peak'] / 2**30:.3f} GiB), of which {resident_6c} bytes "
+        f"({resident_6c / 2**30:.3f} GiB) were held from earlier phases "
+        f"when it began; over the static main path: {peak} bytes "
+        f"({peak / 2**30:.3f} GiB)")
+    log(f"[serve] {smi}: requests per second through QueryScheduler.pump "
+        f"({len(requests)} requests, {len(names)} dispatches, host clock "
+        f"ending in synchronize): "
+        f"{json.dumps({k: round(v, 2) for k, v in serve['rps'].items()})}")
+    for (f, w), per in serve["ms"].items():
+        log(f"[serve] {smi}: {f} flavor, width {w}: wall ms per dispatch "
+            f"(best of 2): {json.dumps(per)}")
+    log(f"[launches] phase 6c in all (MVCC reads and appends, both serving "
+        f"pumps): {json.dumps(launches_6c)}")
+    log(f"[6c] snapshots and serving: {secs_6c:.1f} s")
 
     # -- 7. skew path ---------------------------------------------------------------
     dev = engine.device

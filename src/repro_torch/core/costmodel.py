@@ -2,9 +2,11 @@
 
 ``probe_schedule_seconds`` prices one probe schedule (``plan_probe``),
 ``tail_extend_seconds`` a probe-cache extension over an appended fact tail
-(``plan_fact_append``), and ``plan_compaction`` prices three things: the
+(``plan_fact_append``), ``plan_compaction`` prices three things: the
 delta overlay every probe stream pays while a delta is live, one
-bucket-local merge, and the full rebuild the delta path avoids.  The
+bucket-local merge (in place, or swapped to fresh planes under a live
+snapshot), and the full rebuild the delta path avoids; and
+``batch_serve_seconds`` one batched serving dispatch (``plan_batch``).  The
 per-element costs are the JAX package's ``"cpu"`` entry, measured there on
 a CPU host.  The port has no costs measured on a CUDA card yet, so any
 other backend raises ``NotImplementedError`` instead of being priced as a
@@ -158,9 +160,15 @@ def delta_overlay_seconds(n_probes: int, delta_slots: int,
 
 
 def merge_seconds(n_delta: int, n_dict: int, bucket_width: int,
-                  backend: str = "cpu") -> float:
+                  backend: str = "cpu", *, swap: bool = False) -> float:
     """Bucket-local compaction: dictionary positional merge plus two write
-    phases over the delta entries' bucket rows."""
+    phases over the delta entries' bucket rows.
+
+    ``swap=False`` is the in-place flavor (only the touched bucket rows are
+    written); ``swap=True`` the flavor a live epoch snapshot forces, which
+    first copies both table planes (keys and values, about ``2 n_dict``
+    slots each at load 0.5) into a fresh pair.
+    """
     c = host_costs(backend)
     row_bytes = 2 * bucket_width * 4
     ns = (3.0 * (n_dict + n_delta) * c.pass_ns          # dictionary merge
@@ -168,6 +176,8 @@ def merge_seconds(n_delta: int, n_dict: int, bucket_width: int,
           + 2.0 * n_delta * (row_bytes * c.gather_ns_per_byte
                              + bucket_width * c.lane_ns)  # phase-1/2 rows
           + 8 * c.op_ns)
+    if swap:  # sequential copy of keys + values into the fresh pair
+        ns += 2 * (2 * n_dict) * 8 * c.cached_gather_ns_per_byte
     return ns * 1e-9
 
 
@@ -179,4 +189,26 @@ def rebuild_seconds(n_build: int, bucket_width: int,
     ns = (3.0 * n * _log2(n) * c.sort_ns_per_elem_log2
           + 8.0 * n * c.pass_ns
           + 10 * c.op_ns)
+    return ns * 1e-9
+
+
+# Serving pricing (``planner.plan_batch``): elementwise passes per request
+# in the batched filter -> mask -> measure -> segment-sum tail (dimension
+# filter gathers, fact predicates, the measure, the segment sum), each one
+# pass over the fact rows and repeated per parameter vector...
+SERVE_PASSES_PER_REQUEST = 6.0
+# ...and the fixed dispatches of one batched serve: the batch program and
+# the distribution of its results.
+SERVE_OPS_PER_DISPATCH = 2
+
+
+def batch_serve_seconds(batch: int, n_rows: int,
+                        backend: str = "cpu") -> float:
+    """Modeled wall seconds of one batched query dispatch: ``batch``
+    parameter vectors of one query over an ``n_rows`` fact stream.  The
+    stream work grows with the batch; the fixed dispatch cost is paid
+    once, the amortization ``plan_batch`` trades against deadline slack."""
+    c = host_costs(backend)
+    ns = (max(1, batch) * max(1, n_rows) * SERVE_PASSES_PER_REQUEST
+          * c.pass_ns + SERVE_OPS_PER_DISPATCH * c.op_ns)
     return ns * 1e-9

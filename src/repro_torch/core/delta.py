@@ -20,7 +20,8 @@ Every op runs eagerly on the device its tensors live on and is
 bit-identical to the JAX package's.  Where the JAX ops scatter with
 ``mode="drop"``, ``apply_batch`` scatters into one trailing park slot and
 slices it off; ``merge_entries`` writes only the selected cells, into
-copies of the table planes.
+copies of the table planes or, with ``inplace``, into the planes
+themselves.
 """
 from __future__ import annotations
 
@@ -254,7 +255,8 @@ def delta_entries(delta: DeltaTable
 
 
 def merge_entries(table: JSPIMTable, codes: torch.Tensor, words: torch.Tensor,
-                  live: torch.Tensor) -> tuple[JSPIMTable, torch.Tensor]:
+                  live: torch.Tensor, *, inplace: bool = False
+                  ) -> tuple[JSPIMTable, torch.Tensor]:
     """Fold (code, word) ops into ``table`` with bucket-local writes.
 
     ``codes`` are keys in the table's own key space (dictionary codes at
@@ -271,8 +273,11 @@ def merge_entries(table: JSPIMTable, codes: torch.Tensor, words: torch.Tensor,
     True when some insert found no empty slot, and then the merged table
     is incomplete and the caller must rebuild with more buckets.
 
-    The merge writes into copies of the table planes, so ``table`` stays
-    unchanged for every holder that still reads it.
+    By default the merge writes into copies of the table planes, so
+    ``table`` stays unchanged for every holder that still reads it (the
+    swap flavor).  With ``inplace`` it writes the touched bucket rows into
+    ``table``'s own key and value tensors, O(ops) instead of a copy of the
+    planes: only for a caller that nothing else reads the planes through.
     """
     nb, bw = table.keys.shape
     dev = table.keys.device
@@ -293,7 +298,8 @@ def merge_entries(table: JSPIMTable, codes: torch.Tensor, words: torch.Tensor,
         cur_dup, table.group_count[(cur_word >> 1).clamp(0, ng - 1).long()],
         1)
 
-    keys, values = table.keys.clone(), table.values.clone()
+    keys, values = ((table.keys, table.values) if inplace
+                    else (table.keys.clone(), table.values.clone()))
     flat_k, flat_v = keys.view(-1), values.view(-1)
 
     # ---- phase 1: deletes clear, updates overwrite ----------------------

@@ -225,7 +225,11 @@ def index_update(table: JSPIMTable, key, new_payload) -> JSPIMTable:
     word = (_i32(new_payload, dev) << 1) | (old & 1)
     values = table.values.clone()
     values[b, slot] = torch.where(match.any(), word, old)
-    return dataclasses.replace(table, values=values)
+    # fresh planes, both: the engine counts an update as a new table
+    # generation, and an in-place compaction of that generation must not
+    # write a keys plane an epoch snapshot still reads
+    return dataclasses.replace(table, keys=table.keys.clone(),
+                               values=values)
 
 
 def table_update(table: JSPIMTable, bucket_ids, new_keys,

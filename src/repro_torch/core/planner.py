@@ -9,15 +9,18 @@ probe schedule through ``costmodel.probe_schedule_seconds`` and picks
 compacted cold remainder); ``stream`` is priced for reporting and taken
 only when forced.  A non-default schedule needs a ``GATHERED_MARGIN`` win.
 ``plan_compaction`` decides whether a dimension's delta folds back into
-its main table now, ``plan_fact_append`` whether a cached probe is
-extended over an appended fact tail or re-probed, and ``skew_drift``
-whether the fact-side skew moved enough since it was measured to re-plan.
+its main table now (and in which flavor), ``plan_fact_append`` whether a
+cached probe is extended over an appended fact tail or re-probed,
+``skew_drift`` whether the fact-side skew moved enough since it was
+measured to re-plan, and ``plan_batch`` how many serving requests one
+dispatch takes.
 
 Pricing on a CUDA card waits for the planner slice (ROADMAP Queue 1 item
 5): ``costmodel`` has no ``"cuda"`` entry, so on that backend
 ``plan_probe`` needs ``force`` and ``plan_compaction`` raises
-``NotImplementedError``, as does ``plan_fact_append``.  The fusion
-planner waits for the same slice.
+``NotImplementedError``, as do ``plan_fact_append`` and ``plan_batch``
+(the serving tier prices on the ``"cpu"`` entry, as the JAX package's
+does on every device).  The fusion planner waits for the same slice.
 """
 from __future__ import annotations
 
@@ -219,27 +222,35 @@ class CompactionPlan:
     compact: bool
     reason: str          # "fill" | "bucket" | "amortized" | "defer" | "empty"
     est_overlay_s: float  # per-probe-stream delta-overlay tax right now
-    est_merge_s: float    # one bucket-local compaction
+    est_merge_s: float    # one compaction, in the flavor ``swap`` names
     est_rebuild_s: float  # the full sort-based rebuild being avoided
+    # True when a live epoch snapshot pins the main-table planes: the merge
+    # writes a fresh pair of planes instead of the existing ones
+    swap: bool = False
 
 
 def plan_compaction(*, delta_entries: int, delta_slots: int,
                     fill_frac: float, worst_bucket_frac: float = 0.0,
                     n_build: int, n_dict: int, bucket_width: int,
                     expected_probes: int,
-                    backend: str = "cpu") -> CompactionPlan:
+                    backend: str = "cpu",
+                    pinned: bool = False) -> CompactionPlan:
     """Decide whether to fold the delta into the main table now.
 
     Two triggers: occupancy (compact before a bucket overflows and forces
     a delta grow) and amortization (the overlay tax of one expected probe
-    stream already exceeds the one-off merge).  Raises
-    ``NotImplementedError`` on a backend the cost model has no entry for.
+    stream already exceeds the one-off merge).  ``pinned`` (a live epoch
+    snapshot holds the main-table planes) prices the swap flavor, dearer
+    by a copy of the planes, which defers amortized compactions while
+    readers hold old epochs; the occupancy triggers hold regardless.
+    Raises ``NotImplementedError`` on a backend the cost model has no
+    entry for.
     """
     overlay = costmodel.delta_overlay_seconds(
         expected_probes, delta_slots, bucket_width=bucket_width,
         backend=backend)
     merge = costmodel.merge_seconds(delta_entries, n_dict, bucket_width,
-                                    backend=backend)
+                                    backend=backend, swap=pinned)
     rebuild = costmodel.rebuild_seconds(n_build + delta_entries,
                                         bucket_width, backend=backend)
     if delta_entries == 0:
@@ -254,7 +265,7 @@ def plan_compaction(*, delta_entries: int, delta_slots: int,
         compact, reason = False, "defer"
     return CompactionPlan(compact=compact, reason=reason,
                           est_overlay_s=overlay, est_merge_s=merge,
-                          est_rebuild_s=rebuild)
+                          est_rebuild_s=rebuild, swap=pinned)
 
 
 # ---------------------------------------------------------------------------
@@ -302,3 +313,50 @@ def plan_fact_append(plan: SchedulePlan, *, n_tail: int, n_cached: int,
     return FactAppendPlan(extend=extend,
                           reason="tail" if extend else "reprobe",
                           est_tail_s=tail, est_reprobe_s=reprobe)
+
+
+# ---------------------------------------------------------------------------
+# Serving: how many compatible requests one dispatch takes
+# ---------------------------------------------------------------------------
+
+# Keep this multiple of the modeled dispatch time in deadline slack: the
+# model is coarse, and a missed deadline is an explicit failure of every
+# request in the batch.
+BATCH_SLACK_FACTOR = 2.0
+
+
+@dataclasses.dataclass(frozen=True)
+class BatchPlan:
+    """Hashable batch-size decision for one serving dispatch."""
+
+    size: int            # requests to fold into this dispatch
+    reason: str          # "depth" | "deadline"
+    est_batch_s: float   # modeled wall time of the chosen dispatch
+    est_single_s: float  # modeled wall time of a size-1 dispatch
+
+
+def plan_batch(*, queue_depth: int, slack_s: float | None, n_rows: int,
+               max_batch: int, backend: str = "cpu") -> BatchPlan:
+    """Batch width against deadline slack for one serving dispatch.
+
+    A wider batch amortizes the fixed dispatch cost, but every rider waits
+    for the whole dispatch: the width halves until the modeled dispatch,
+    times ``BATCH_SLACK_FACTOR``, fits the tightest member's remaining
+    slack.  ``slack_s=None`` (no deadline in the batch) leaves depth and
+    ``max_batch`` to decide.  Raises ``NotImplementedError`` on a backend
+    the cost model has no entry for.
+    """
+    size = max(1, min(queue_depth, max_batch))
+    reason = "depth"
+    if slack_s is not None:
+        while size > 1 and costmodel.batch_serve_seconds(
+                size, n_rows, backend=backend) * BATCH_SLACK_FACTOR \
+                > slack_s:
+            size //= 2
+            reason = "deadline"
+    return BatchPlan(
+        size=size, reason=reason,
+        est_batch_s=costmodel.batch_serve_seconds(size, n_rows,
+                                                  backend=backend),
+        est_single_s=costmodel.batch_serve_seconds(1, n_rows,
+                                                   backend=backend))

@@ -173,8 +173,8 @@ def ingest_index(index: DimIndex, keys, payloads=None, *,
     return dataclasses.replace(index, delta=new)
 
 
-def compact_index(index: DimIndex, *,
-                  max_grow_retries: int = 8) -> DimIndex:
+def compact_index(index: DimIndex, *, max_grow_retries: int = 8,
+                  donate: bool = False) -> DimIndex:
     """Fold the delta back into the main table.
 
     New raw keys take fresh dictionary codes through a positional merge
@@ -184,8 +184,15 @@ def compact_index(index: DimIndex, *,
     of empty slots does it rebuild, with doubled geometry, from the
     merged table's live entries plus the inserts that did not fit.
 
-    The result has fresh planes and ``index`` stays unchanged, so every
-    holder of ``index`` (another engine, a caller) reads what it read.
+    ``donate=False`` (the default) is the **swap** flavor: the result has
+    fresh planes and ``index`` stays unchanged, so every holder of
+    ``index`` (an epoch snapshot, another engine, a caller) reads what it
+    read.  ``donate=True`` is the **in-place** flavor: the merge writes the
+    touched bucket rows into ``index``'s own key and value tensors, O(delta)
+    instead of a copy of the planes, and ``index`` must not be read
+    afterwards (the engine takes it only when no live snapshot pins the
+    planes).  Both flavors give the same table, the grow fallback
+    included: it rebuilds from the merged table, never from ``index``.
     """
     if index.delta is None:
         return index
@@ -204,11 +211,12 @@ def compact_index(index: DimIndex, *,
     dev = table.keys.device
     merged, needs_grow = merge_entries(
         table, _as_i32(codes, dev), _as_i32(dw, dev),
-        torch.ones(dk.shape, dtype=torch.bool, device=dev))
+        torch.ones(dk.shape, dtype=torch.bool, device=dev), inplace=donate)
     if bool(needs_grow):
-        # rebuild from the merged table's live multiset: the merge applied
-        # every delete and update and every insert that fit, so what is
-        # missing is exactly the live non-tombstone codes absent from it
+        # rebuild from the merged table's live multiset (in the in-place
+        # flavor ``table`` is the merged table): the merge applied every
+        # delete and update and every insert that fit, so what is missing
+        # is exactly the live non-tombstone codes absent from it
         ek, ev, valid = (x.cpu().numpy() for x in table_entries(merged))
         ek, ev = ek[valid], ev[valid]
         unplaced = ~is_tomb & (codes >= 0) & ~np.isin(codes, ek)

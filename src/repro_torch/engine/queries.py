@@ -50,12 +50,27 @@ with the delta overlay included, and spliced into the cached
 fact-side skew is re-measured and drifted dimensions re-planned
 (``planner.skew_drift``).  Queries run over the physical (capacity-padded)
 rows: padding FKs are ``EMPTY_KEY`` and join nothing.  ``epoch`` counts
-every mutation that changes the engine's state.  Durability, mutation
-hooks and epoch snapshots wait for later slices.
+every mutation that changes the engine's state.
+
+Epoch snapshots (MVCC): ``snapshot()`` freezes one consistent image
+(tables, indexes with their deltas, plans, the probe cache) as an
+``EpochSnapshot`` (``engine/snapshot.py``) that answers queries through
+the same ``_QueryRunner`` methods while ``append_fact_rows`` / ``ingest``
+/ ``compact`` advance the engine.  Three sites write tensors in place: the
+fact tail, the probe-cache splice and the in-place compaction merge.  Each
+checks the buffer *generation* it would write against the generations
+the live snapshots pin, and writes a fresh generation instead when one is
+pinned; once the last snapshot pinning it is released (or collected), the
+in-place writes re-arm.  Mutations serialize under one reentrant lock;
+queries and snapshots take none.  Durability and mutation hooks wait for
+later slices.
 """
 from __future__ import annotations
 
 import dataclasses
+import functools
+import threading
+import weakref
 from typing import Callable
 
 import numpy as np
@@ -134,9 +149,10 @@ def _eq(col, v):
 
 
 def _in(col, vals):
+    # comparisons and ``|`` only, so the host oracle runs it on numpy too
     def f(t):
-        m = torch.zeros_like(t[col], dtype=torch.bool)
-        for v in vals:
+        m = t[col] == vals[0]
+        for v in vals[1:]:
             m = m | (t[col] == v)
         return m
     return f
@@ -310,8 +326,10 @@ def _mega_operands(spec: QuerySpec, fact_cols, dim_cols, indexes):
 class _QueryRunner:
     """Query execution over ``tables``/``indexes`` and a ``probe_dim``.
 
-    ``SSBEngine`` supplies the state and the probe cache; the epoch
-    snapshots of a later slice answer queries through the same methods.
+    ``SSBEngine`` supplies the live state and its probe cache, an
+    ``EpochSnapshot`` a frozen image of it; both answer queries through
+    these same methods, so an old epoch is served by the code path the
+    head runs.
     """
 
     policy: ExecutionPolicy
@@ -427,6 +445,18 @@ class _QueryRunner:
                                      probes) for n in names}
 
 
+def _mutates(fn):
+    """Mutation-method guard: the engine's reentrant lock, so a snapshot
+    (a serving tier's refresh) or a background compaction's publish never
+    sees half a mutation.  Reentrant because mutations compose
+    (``append_rows`` drives ``ingest``, which may drive ``compact``)."""
+    @functools.wraps(fn)
+    def wrapper(self, *a, **k):
+        with self._mu:
+            return fn(self, *a, **k)
+    return wrapper
+
+
 class SSBEngine(_QueryRunner):
     """Executes SSB queries with joins delegated to the selected engine.
 
@@ -440,9 +470,12 @@ class SSBEngine(_QueryRunner):
     ``device="cpu"`` the constructor raises ``RuntimeError``.  ``indexes``
     adopts prebuilt ``DimIndex``es (``engine/convert.py`` carries the JAX
     package's over) instead of building them; their ``fact_skew`` feeds
-    the planner.  A jspim engine on the card refuses ``schedule="auto"``
-    with ``NotImplementedError`` before it builds anything (no cost entry
-    for the card until the planner slice).
+    the planner.  The engine takes its own copy of their table planes,
+    which its compactions write in place, so engines built on one
+    ``indexes`` mapping never see each other's compactions.  A jspim
+    engine on the card refuses ``schedule="auto"`` with
+    ``NotImplementedError`` before it builds anything (no cost entry for
+    the card until the planner slice).
     """
 
     def __init__(self, tables: dict[str, Table], mode: str | None = None,
@@ -479,7 +512,11 @@ class SSBEngine(_QueryRunner):
         n_fact = fact.n_rows
         if self.mode == "jspim":
             if indexes is not None:
-                self.indexes = dict(indexes)
+                self.indexes = {
+                    d: dataclasses.replace(ix, table=dataclasses.replace(
+                        ix.table, keys=ix.table.keys.clone(),
+                        values=ix.table.values.clone()))
+                    for d, ix in indexes.items()}
             else:
                 # built once, reused across queries (§3.2.3 persistence);
                 # the fact FK column rides along so BuildStats records its
@@ -501,6 +538,20 @@ class SSBEngine(_QueryRunner):
         self._cache_owned: set[str] = set()
         # bumped by every mutation that changes the engine's state
         self._epoch = 0
+        # -- epoch snapshots ----------------------------------------------
+        # mutations serialize under this lock (queries take none)
+        self._mu = threading.RLock()
+        # live snapshots, held weakly: one nobody references stops pinning
+        # even unreleased.  A generation counts the buffer families the
+        # engine allocates for one piece of state; a snapshot pins the
+        # generations it reads, and an in-place write to the current
+        # generation is allowed only while no live snapshot pins it
+        self._snapshots: "weakref.WeakSet" = weakref.WeakSet()
+        self._snapshots_taken = 0
+        self._pin_copies = 0       # in-place writes a pin turned into copies
+        self._fact_gen = 0         # the fact table's capacity buffers
+        self._cache_gens: dict[str, int] = {}  # each dim's cached probes
+        self._index_gens: dict[str, int] = {}  # each dim's main-table planes
         self._fact_epoch = 0
         self._fact_appends = 0
         self._fact_rows_appended = 0
@@ -582,6 +633,9 @@ class SSBEngine(_QueryRunner):
         self._misses += 1
         out = self._probe_cache[dim] = self._join(dim)
         self._probe_epoch[dim] = self._fact_epoch
+        # fresh tensors: a new generation no snapshot pins yet (the caller
+        # holds them, so the next splice copies all the same)
+        self._cache_gens[dim] = self._cache_gens.get(dim, 0) + 1
         return out
 
     def warm_cache(self, dims=None) -> None:
@@ -613,13 +667,70 @@ class SSBEngine(_QueryRunner):
         §3.2.3 update commands, compaction)."""
         return self._epoch
 
+    # -- epoch snapshots ----------------------------------------------------
+    def snapshot(self) -> "EpochSnapshot":
+        """Freeze the current image as an ``EpochSnapshot``.
+
+        The snapshot shares this engine's tensors (no copy) and answers
+        queries bit-identically at this epoch while the engine advances.
+        The engine's in-place writes (fact tail, probe-cache splice,
+        compaction merge) never touch a generation a live snapshot pins:
+        the first such mutation after the snapshot writes a fresh
+        generation, and the in-place writes re-arm on it.  Release the
+        snapshot (``release()``, a ``with`` block, or dropping it) to
+        retire its pins.
+        """
+        with self._mu:  # a freeze never interleaves with a mutation
+            snap = self._make_snapshot()
+            self._snapshots.add(snap)
+            self._snapshots_taken += 1
+        return snap
+
+    def _make_snapshot(self):
+        from repro_torch.engine.snapshot import EpochSnapshot
+
+        return EpochSnapshot(self)
+
+    def _live_snapshots(self) -> list:
+        with self._mu:  # release() discards from the set under this lock
+            return [s for s in self._snapshots if not s.released]
+
+    def _fact_pinned(self) -> bool:
+        """Does a live snapshot pin the current fact capacity buffers?"""
+        return any(s._pin_fact_gen == self._fact_gen
+                   for s in self._live_snapshots())
+
+    def _cache_pinned(self, dim: str) -> bool:
+        """Does a live snapshot pin ``dim``'s current cached probes?"""
+        g = self._cache_gens.get(dim, 0)
+        return any(s._pin_cache_gens.get(dim) == g
+                   for s in self._live_snapshots())
+
+    def _index_pinned(self, dim: str) -> bool:
+        """Does a live snapshot pin ``dim``'s current main-table planes?"""
+        g = self._index_gens.get(dim, 0)
+        return any(s._pin_index_gens.get(dim) == g
+                   for s in self._live_snapshots())
+
+    def snapshot_info(self) -> dict:
+        """Epoch, snapshot and pin counters."""
+        return {"epoch": self._epoch,
+                "live_snapshots": len(self._live_snapshots()),
+                "snapshots_taken": self._snapshots_taken,
+                "pin_copies": self._pin_copies,
+                "fact_gen": self._fact_gen}
+
     # -- §3.2.3 update commands (invalidate the affected dim's probes) -----
     def _replace_table(self, dim: str, table) -> None:
         self.indexes[dim] = dataclasses.replace(self.indexes[dim],
                                                 table=table)
+        # the update wrote fresh planes: a new generation (snapshots keep
+        # the old table object)
+        self._index_gens[dim] = self._index_gens.get(dim, 0) + 1
         self._epoch += 1
         self.invalidate_probe_cache(dim)
 
+    @_mutates
     def entry_update(self, dim: str, bucket, slot, key, value_word) -> None:
         """Entry Update: overwrite one (bucket, slot) cell of ``dim``.
 
@@ -628,6 +739,7 @@ class SSBEngine(_QueryRunner):
         self._replace_table(dim, _ht.entry_update(
             self.indexes[dim].table, bucket, slot, key, value_word))
 
+    @_mutates
     def index_update(self, dim: str, key, new_payload) -> None:
         """Index Update: search raw ``key`` in ``dim``; update its payload.
 
@@ -638,6 +750,7 @@ class SSBEngine(_QueryRunner):
         self._replace_table(dim, _ht.index_update(
             self.indexes[dim].table, code, new_payload))
 
+    @_mutates
     def table_update(self, dim: str, bucket_ids, new_keys,
                      new_values) -> None:
         """Table Update: burst-write whole buckets of ``dim``."""
@@ -650,6 +763,7 @@ class SSBEngine(_QueryRunner):
         (a CUDA engine, until the planner slice)."""
         costmodel.host_costs(self.device.type)
 
+    @_mutates
     def ingest(self, dim: str, keys, payloads=None, *, op: str = "upsert",
                auto_compact: bool = True) -> CompactionPlan | None:
         """Absorb a batch of index ops into ``dim``'s delta buffer.
@@ -694,6 +808,9 @@ class SSBEngine(_QueryRunner):
         self.indexes[dim] = ingest_index(self.indexes[dim], keys, payloads,
                                          op=op)
         self._ingest_batches += 1
+        # the delta is fresh but the main-table planes are the previous
+        # index's: their generation stays, so a snapshot taken before the
+        # ingest still pins them against an in-place compaction
         self._epoch += 1
         self.invalidate_probe_cache(dim)
         after = self.indexes[dim].delta
@@ -709,6 +826,7 @@ class SSBEngine(_QueryRunner):
             self.compact(dim)
         return plan
 
+    @_mutates
     def append_rows(self, dim: str, rows, *,
                     auto_compact: bool = True) -> None:
         """Append new rows to a dimension table and index them.
@@ -757,6 +875,7 @@ class SSBEngine(_QueryRunner):
             self.invalidate_probe_cache(dim)
 
     # -- fact-side streaming append: probe-cache tail extension ------------
+    @_mutates
     def append_fact_rows(self, rows, *, extend_cache: bool = True) -> dict:
         """Append new lineorder rows; extend cached probes over the tail.
 
@@ -777,8 +896,12 @@ class SSBEngine(_QueryRunner):
 
         The first append copies the fact columns into fresh capacity
         buffers, so tables shared with another engine or a caller never
-        change; later appends write the tail window in place.  Probe
-        tuples a caller took from ``probe_dim`` never change either.
+        change; later appends write the tail window in place, unless a
+        live snapshot pins those buffers: then the append writes a copy
+        (counted in ``snapshot_info()["pin_copies"]``) and the next one
+        writes that copy in place.  Probe tuples a caller took from
+        ``probe_dim`` never change either, and the cached probes a live
+        snapshot pins are extended into copies the same way.
 
         Returns a report: rows appended, the new fact epoch, whether the
         capacity grew, the per-dimension decision, and the dimensions
@@ -803,8 +926,17 @@ class SSBEngine(_QueryRunner):
         pad_values = {FACT_FK[d]: _ht.EMPTY_KEY for d in FACT_FK}
         # one bucket for both write windows (table tail and cache splice)
         bp = tail_bucket(n_new)
+        will_grow = n0 + bp > fact.n_physical
+        if fact.tail_owned and not will_grow and self._fact_pinned():
+            # a live snapshot reads these buffers: write a fresh generation
+            # (a growing append writes fresh buffers whatever the pins, so
+            # there a pin changes, and counts, nothing)
+            fact = dataclasses.replace(fact, tail_owned=False)
+            self._pin_copies += 1
         grown = fact.append_tail(new_cols, pad_values, bucket=bp)
         capacity_grew = grown.n_physical != fact.n_physical
+        if capacity_grew or not fact.tail_owned:
+            self._fact_gen += 1  # fresh buffers: no snapshot pins them yet
         self.tables["lineorder"] = grown
         self._epoch += 1
         self._fact_epoch += 1
@@ -830,11 +962,19 @@ class SSBEngine(_QueryRunner):
                 continue
             found, row = self._probe_cache[dim]
             owned = dim in self._cache_owned
+            pinned_copy = owned and self._cache_pinned(dim)
+            if pinned_copy:  # a live snapshot reads them: splice a copy
+                owned = False
+            fresh = not owned  # a copying splice makes a new generation
             if found.shape[0] != grown.n_physical:  # capacity grew: re-pad
                 pad = grown.n_physical - found.shape[0]
                 found = torch.cat([found, found.new_zeros(pad)])
                 row = torch.cat([row, row.new_full((pad,), -1)])
-                owned = True  # fresh buffers: nobody else holds them
+                # fresh buffers, nobody else holds them (the concatenation
+                # copied, pinned or not)
+                owned, fresh, pinned_copy = True, True, False
+            if pinned_copy:
+                self._pin_copies += 1
             # the padded FK window just written into the fact column
             fk_tail = grown[FACT_FK[dim]].narrow(0, n0, bp)
             self._probe_cache[dim] = extend_cached_probe(
@@ -843,6 +983,8 @@ class SSBEngine(_QueryRunner):
                 plan=self.plans.get(dim), owned=owned)
             self._probe_epoch[dim] = self._fact_epoch
             self._cache_owned.add(dim)
+            if fresh:
+                self._cache_gens[dim] = self._cache_gens.get(dim, 0) + 1
             self._tail_extensions += 1
             report["dims"][dim] = "extended"
         report["skew_replanned"] = self._maybe_replan_fact_skew()
@@ -933,9 +1075,10 @@ class SSBEngine(_QueryRunner):
                 "n_physical": fact.n_physical}
 
     def compaction_plan(self, dim: str) -> CompactionPlan:
-        """The planner's compact-or-defer decision for ``dim`` right now.
-        Raises ``NotImplementedError`` on a CUDA engine until the planner
-        slice."""
+        """The planner's compact-or-defer decision for ``dim`` right now,
+        priced in the flavor ``compact`` would take (``swap`` while a live
+        snapshot pins the planes).  Raises ``NotImplementedError`` on a
+        CUDA engine until the planner slice."""
         self._check_plannable()
         idx = self.indexes[dim]
         st = idx.stats
@@ -950,27 +1093,76 @@ class SSBEngine(_QueryRunner):
             n_dict=int(idx.dictionary.n),
             bucket_width=idx.table.bucket_width,
             expected_probes=self.tables["lineorder"].n_rows,
-            backend=self.device.type)
+            backend=self.device.type, pinned=self._index_pinned(dim))
 
+    @_mutates
     def compact(self, dim: str) -> None:
         """Fold ``dim``'s delta into its main table.
 
-        With no buffered ops this is a no-op (an all-empty delta is only
-        stripped).  Otherwise the merge writes fresh planes: an index taken
-        from ``engine.indexes`` before the call, or shared with another
-        engine through ``indexes=``, keeps reading what it read.
+        With no buffered ops this is a strict no-op: no epoch, no cache
+        invalidation, no re-plan (an all-empty delta is only stripped).
+        While a live snapshot pins the main-table planes the merge takes
+        the **swap** flavor (fresh planes; the snapshot keeps reading the
+        old ones, and ``pin_copies`` counts it); otherwise the **in-place**
+        flavor writes the touched bucket rows into the planes, so an index
+        object taken from ``engine.indexes`` before the call must not be
+        read after it: take a snapshot to keep reading it.
         """
         idx = self.indexes[dim]
         if delta_is_empty(idx.delta):
             if idx.delta is not None:
                 self.indexes[dim] = dataclasses.replace(idx, delta=None)
             return
-        self.indexes[dim] = compact_index(idx)
+        pinned = self._index_pinned(dim)
+        if pinned:
+            self._pin_copies += 1
+        self.indexes[dim] = compact_index(idx, donate=not pinned)
+        self._publish_compaction(dim)
+
+    def _publish_compaction(self, dim: str) -> None:
+        # either flavor leaves a generation no snapshot pins: the swap
+        # wrote fresh planes, and the in-place merge wrote unpinned ones
+        self._index_gens[dim] = self._index_gens.get(dim, 0) + 1
         self._epoch += 1
         self._compactions += 1
         self.invalidate_probe_cache(dim)
         # the code space and geometry changed: re-plan
         self._plan_dim(dim)
+
+    # -- background compaction (off the serving path) ---------------------
+    def prepare_compact(self, dim: str):
+        """Stage ``dim``'s merge without holding up queries or ingest.
+
+        Runs ``compact_index``'s swap flavor (fresh planes; the live
+        table, every snapshot and every cached probe stay untouched) with
+        the engine lock released during the merge, so a background thread
+        can fold while the serving path answers.  Returns a token for
+        ``publish_compact``, or ``None`` when there is nothing to fold.
+        """
+        with self._mu:
+            if dim not in self.indexes:
+                raise ValueError(f"dim: unknown dimension {dim!r} (have "
+                                 f"{sorted(self.indexes)})")
+            idx = self.indexes[dim]
+        if delta_is_empty(idx.delta):
+            return None
+        return dim, idx, compact_index(idx, donate=False)
+
+    def publish_compact(self, prepared) -> bool:
+        """Publish a staged merge as one epoch.  Returns ``False`` (the
+        merge dropped, nothing changed) when the dimension's index changed
+        after ``prepare_compact`` read it: the merge folded a delta that
+        is no longer the live one, and publishing would lose the newer
+        ops.  The caller stages again."""
+        if prepared is None:
+            return False
+        dim, source, merged = prepared
+        with self._mu:
+            if self.indexes[dim] is not source:
+                return False
+            self.indexes[dim] = merged
+            self._publish_compaction(dim)
+            return True
 
     def ingest_info(self) -> dict:
         """Ingest/compaction counters + per-dim delta occupancy."""

@@ -201,6 +201,16 @@ class Table:
                 pad_batch(v, bp, int(pad_values.get(k, 0)), dev))
         return Table(out, valid_rows=n0 + b, tail_owned=True)
 
+    def pinned_view(self) -> "Table":
+        """A read-only alias of this table for an epoch snapshot: the same
+        column tensors (no copy) without ``tail_owned``, so an
+        ``append_tail`` on the view writes copies, never the columns the
+        snapshot's readers gather from.  The engine's pins
+        (``SSBEngine._fact_pinned``) protect the columns from the live
+        table's appends; this view protects them from the view's holder."""
+        return Table(dict(self.columns), valid_rows=self.valid_rows,
+                     tail_owned=False)
+
     def trimmed(self) -> "Table":
         """An exact-shape table without capacity padding (oracle rebuilds);
         its columns are copies, so later appends never reach them."""

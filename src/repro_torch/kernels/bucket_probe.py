@@ -124,7 +124,7 @@ def pack_bits(plane: torch.Tensor, test: str):
     lib = _build.load("bucket_probe")
     _build.check(lib.pack_bits_launch(
         plane.data_ptr(), nb, w, _PACK_TESTS[test], slots.data_ptr(),
-        buckets.data_ptr(), _stream()), "pack_bits")
+        buckets.data_ptr(), _stream(plane.device)), "pack_bits")
     pack_bits.launches += 1
     return slots, buckets
 
@@ -149,8 +149,11 @@ def probe_filter_rows_delta_plain(table_keys, table_vals, table_pred,
         delta_keys[db], delta_words[db])
 
 
-def _stream() -> int:
-    return torch.cuda.current_stream().cuda_stream
+def _stream(device: torch.device) -> int:
+    """The current stream of ``device``, the operands' own device, whatever
+    device the calling thread has made current (serving threads launch
+    here too)."""
+    return torch.cuda.current_stream(device).cuda_stream
 
 
 def probe_rows(table_keys: torch.Tensor, table_vals: torch.Tensor,
@@ -173,8 +176,8 @@ def probe_rows(table_keys: torch.Tensor, table_vals: torch.Tensor,
     lib = _build.load("bucket_probe")
     _build.check(lib.probe_rows_launch(
         table_keys.data_ptr(), table_vals.data_ptr(), probe_keys.data_ptr(),
-        out.data_ptr(), m, table_keys.shape[0], w, fib, _stream()),
-        "probe_rows")
+        out.data_ptr(), m, table_keys.shape[0], w, fib,
+        _stream(out.device)), "probe_rows")
     probe_rows.launches += 1
     return out
 
@@ -197,8 +200,8 @@ def bucket_probe_stream(table_keys: torch.Tensor, table_vals: torch.Tensor,
     lib = _build.load("bucket_probe")
     _build.check(lib.bucket_probe_stream_launch(
         table_keys.data_ptr(), table_vals.data_ptr(), probe_keys.data_ptr(),
-        out.data_ptr(), m, table_keys.shape[0], w, fib, _stream()),
-        "bucket_probe_stream")
+        out.data_ptr(), m, table_keys.shape[0], w, fib,
+        _stream(out.device)), "bucket_probe_stream")
     bucket_probe_stream.launches += 1
     return out
 
@@ -231,7 +234,8 @@ def probe_filter_rows(table_keys: torch.Tensor, table_vals: torch.Tensor,
     _build.check(lib.probe_filter_rows_launch(
         table_keys.data_ptr(), table_vals.data_ptr(), slot_bits.data_ptr(),
         bucket_bits.data_ptr(), probe_keys.data_ptr(), out.data_ptr(), m,
-        table_keys.shape[0], w, fib, _stream()), "probe_filter_rows")
+        table_keys.shape[0], w, fib, _stream(out.device)),
+        "probe_filter_rows")
     probe_filter_rows.launches += 1
     return out
 
@@ -275,7 +279,7 @@ def probe_filter_rows_delta(table_keys: torch.Tensor,
         bucket_bits.data_ptr(), probe_keys.data_ptr(), delta_keys.data_ptr(),
         delta_words.data_ptr(), delta_bits.data_ptr(), raw_keys.data_ptr(),
         out.data_ptr(), m, table_keys.shape[0], w, fib, delta_keys.shape[0],
-        dw, dfib, _stream()), "probe_filter_rows_delta")
+        dw, dfib, _stream(out.device)), "probe_filter_rows_delta")
     probe_filter_rows_delta.launches += 1
     return out
 

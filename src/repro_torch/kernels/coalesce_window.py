@@ -53,7 +53,8 @@ def coalesce_window_mask(keys: torch.Tensor, *,
     lib = _build.load("coalesce_window")
     _build.check(lib.coalesce_window_mask_launch(
         keys.data_ptr(), out.data_ptr(), m, window,
-        torch.cuda.current_stream().cuda_stream), "coalesce_window_mask")
+        torch.cuda.current_stream(out.device).cuda_stream),
+        "coalesce_window_mask")
     coalesce_window_mask.launches += 1
     return out
 

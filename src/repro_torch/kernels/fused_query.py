@@ -207,7 +207,7 @@ def pack_query_bits(dim_operands):
     ptrs, ints = _tables(dim_operands, bits)
     lib = _build.load("fused_query")
     _build.check(lib.fused_pack_launch(ptrs, ints, len(dim_operands),
-                                       stats.data_ptr(), _stream()),
+                                       stats.data_ptr(), _stream(dev)),
                  "pack_query_bits")
     pack_query_bits.launches += 1
     return tuple(bits), stats
@@ -239,7 +239,8 @@ def fused_query(dim_operands, fmeasure: torch.Tensor, *,
     lib = _build.load("fused_query")
     _build.check(lib.fused_query_launch(
         ptrs, ints, len(dim_operands), stats.data_ptr(), fmeasure.data_ptr(),
-        m, groups.data_ptr(), num_segments, _stream()), "fused_query")
+        m, groups.data_ptr(), num_segments, _stream(groups.device)),
+        "fused_query")
     fused_query.launches += 1
     return groups.sum().to(torch.int32), groups
 

@@ -38,9 +38,18 @@ class Block:
             raise ImportError(f"blocked: {name}")
 sys.meta_path.insert(0, Block())
 import repro_torch, repro_torch.core, repro_torch.kernels, repro_torch.engine
+import repro_torch.durability, repro_torch.serving
 from repro_torch.engine import SSBEngine, generate_ssb
+from repro_torch.serving import QueryScheduler
 engine = SSBEngine(generate_ssb(0.0001, device="cpu"), device="cpu")
 print(sorted(engine.run_all()))
+with engine.snapshot() as snap:
+    assert sorted(snap.run_all()) == sorted(engine.run_all())
+sched = QueryScheduler(engine)
+ticket = sched.submit("Q2.1")
+sched.pump()
+assert ticket.response.ok
+sched.close()
 assert not any(m.split(".")[0] in ("jax", "jaxlib", "repro")
                for m in sys.modules)
 """
