@@ -15,20 +15,30 @@ Phases (each raises on failure; nothing is caught):
    ``probe_filter_rows``, in chunks of at most 4M for the plain version,
    and all 13 queries' ``fused_query`` operands, with their
    ``pack_query_bits`` bit sets).
-4. Main path: ``generate_ssb(sf)`` -> ``SSBEngine(tables)``, then the 13
-   queries through (a) ``run_all(fusion="composed")`` on the probe cache,
+3c. Calibration (``[calib]`` lines, beside the constants of the cost
+   model's ``"cuda"`` entry, ``core/costmodel.py``): 60M random 4-byte
+   reads of a 512 MiB and of a 16 MiB table (ns per byte of the 32-byte
+   sectors they move), the L2 size, ``probe_rows`` on part's probes per
+   probe per lane, a stable ``torch.sort`` of 60M int32 keys per element
+   per log2, an int32 elementwise pass over 60M rows, and the host-clock
+   cost of one small launch.
+4. Main path: ``generate_ssb(sf)`` -> ``SSBEngine(tables)`` (the default
+   policy, ``schedule="auto"`` and ``fusion="auto"``: its plans printed,
+   gathered on every dimension), then the 13 queries through (a) ``run_all(fusion="composed")`` on the probe cache,
    (b) cold ``run(q, use_cache=False)``, (c) ``run(q, fusion="mega")`` and
    (d) ``mode="baseline"``.  All four must agree, Q1.1 and Q2.1 must match
    a numpy computation on the host arrays, and every kernel's launch count
-   over this run must equal the path's fixed count.
+   over this run must equal the path's fixed count.  ``[plan]``: on a
+   warm cache ``run_all(fusion="mega")`` and ``"composed"`` are timed;
+   ``plan_query``'s pick must be within 10% of the faster.
 5. Stream path: an engine with ``schedule="stream"`` on the same indexes
    runs the cached and cold paths; its 13 answers must equal phase 4's and
    its launches the path's fixed count.  Then the forced skew-aware
-   schedules: one engine with ``schedule="deduped"`` and one with
-   ``"hot_cold"`` on the same indexes print each dimension's plan, run the
-   cached and cold paths, give phase 4's answers and the launch counts
-   their plans fix; ``schedule="auto"`` must raise ``NotImplementedError``
-   on the card (no cost entry for it yet).
+   schedules: an engine with ``schedule="auto"`` (priced on the card's
+   entry: gathered on every dimension) and engines with
+   ``schedule="deduped"`` and ``"hot_cold"`` on the same indexes print
+   each dimension's plan, run the cached and cold paths, give phase 4's
+   answers and the launch counts their plans fix.
 6. Mutation path: a fresh engine (its own dimension tables, the same fact
    table) and a ``kernel="torch"`` twin take a seeded stream per dimension
    with ``auto_compact=False``: delete 0.5% of the keys, upsert 0.5% to
@@ -39,8 +49,12 @@ Phases (each raises on failure; nothing is caught):
    the real operands; the 13 queries run cached, cold, mega and on the
    twin, all must agree, Q1.1 and Q2.1 must match numpy over host
    key->row maps kept through the stream, and the launches must equal the
-   fixed counts.  Then every dimension is compacted and the same checks
-   run again, with the same answers.
+   fixed counts.  An engine taking the same ops with ``auto_compact=True``
+   (its ``CompactionPlan`` printed per ingest) must answer as the
+   ``auto_compact=False`` one.  Then every dimension is compacted and the
+   same checks run again, with the same answers; ``[plan]``: each
+   dimension's overlay and merge estimates beside the plain overlay's
+   device time and the ``compact`` wall.
 6b. Fact-append path: a fresh gathered engine on phase 4's tables takes
    ``warm_cache()``, then 2 warm-up and 10 timed ``append_fact_rows`` of
    1% of the fact table each (600,000 rows at SF10, padded to a 2^20-row
@@ -57,7 +71,10 @@ Phases (each raises on failure; nothing is caught):
    by CUDA events, the four by the host clock, the validation, padding
    and host-to-device copies of the ten columns, ``Table.append_tail`` in
    place and with a capacity growth (three times, the first after
-   ``torch.cuda.empty_cache()``), and the skew re-measure.  A twin takes
+   ``torch.cuda.empty_cache()``), and the skew re-measure; ``[plan]``:
+   each dimension's ``plan_fact_append`` estimates beside its tail
+   extension and a reprobe of the padded column (the plan must extend,
+   and the extension be the faster).  A twin takes
    the same batches with ``extend_cache=False`` + ``warm_cache()`` (the
    reprobe time).  Then the 13 queries over the padded columns (cached,
    cold, mega: the main path's launch counts) must agree with each
@@ -104,7 +121,21 @@ Phases (each raises on failure; nothing is caught):
    ``[mvcc]`` (ms per ``snapshot()``, the four appends, the swap and
    in-place compactions, peak memory beside the static path's) and
    ``[serve]`` (requests per second per flavor, wall ms per dispatch at
-   widths 1, 4, 8), and the phase's seconds.
+   widths 1, 4, 8, and ``[plan]`` the dispatch estimate at widths 1 and
+   8), and the phase's seconds.
+6d. Maintained views: a fresh engine (its own dimension tables) at SF10
+   takes ``MaintainedSuite.attach`` (its 13 answers must equal
+   ``run_all``), then two 1% fact appends (a snapshot between them
+   freezes the answers: they must not move and must equal the
+   snapshot's ``run_all``), 0.5% deletes and upserts on part and
+   customer, an ``append_rows`` of 0.5% of supplier and
+   ``compact("part")`` (seed+4); after each, the suite is fresh at the
+   engine's epoch and equals ``run_all(fusion="composed")``.  A
+   ``table_update`` must invalidate it and ``rebuild()`` recover it.
+   Then a ``QueryScheduler`` serves the 13 canonical requests and 13 x 7
+   sampled ones: ``maintained_served`` must equal the canonical count,
+   and every answer the composed flavor's.  ``[ivm]``: attach and rebuild
+   seconds, ms per event, rows touched, and the recompute ms after it.
 7. Skew path (the JAX package's ``benchmarks/skew_sweep.py`` at SSB SF10
    sizes): a 2,000,000-key dimension with part's geometry, probed by
    60,000,000 Zipf(s) keys for s in the paper's grid {0, 0.5, 1.5, 2}.
@@ -120,7 +151,9 @@ Phases (each raises on failure; nothing is caught):
    window at 2, 8, 17 and 32 on every length where its split into a
    scalar head, spans of 512 keys a warp and a scalar tail changes, the
    keys starting 0 to 3 keys past a 16-byte boundary, with EMPTY_KEY and
-   NO_CODE among them.
+   NO_CODE among them.  ``[plan]`` per s: the four schedules' estimates
+   beside their device times; the CUDA kernels' auto pick (gathered) must
+   be within 10% of the fastest measured schedule.
 8. Numbers: per-query wall times per path, per-kernel device time per
    launch (CUDA events) beside the plain version's, the bytes each launch
    must move and the bound they set (for ``fused_query``, what the query's
@@ -144,6 +177,7 @@ when no CUDA device is available or the package is missing.
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 from fractions import Fraction
 import re
@@ -182,10 +216,11 @@ EXPECTED_STREAM = dict(_ZERO, bucket_probe_stream=8, probe_filter_rows=32,
                        pack_bits=32)
 EXPECTED_LIVE = dict(_ZERO, probe_rows=8, probe_filter_rows_delta=32,
                      pack_bits=64, fused_query=13, pack_query_bits=13)
-# deduped: one probe_rows per unfiltered probe (of the unique keys), as
-# gathered; hot_cold: see hot_cold_launches
-EXPECTED_DEDUPED = dict(_ZERO, probe_rows=8, probe_filter_rows=32,
-                        pack_bits=32)
+# the cached and cold paths of a gathered engine; deduped makes the same
+# launches (one probe_rows per unfiltered probe, of the unique keys);
+# hot_cold: see hot_cold_launches
+EXPECTED_CACHED_COLD = dict(_ZERO, probe_rows=8, probe_filter_rows=32,
+                            pack_bits=32)
 # one pass of the skew phase per s: gathered 1, deduped 1 and hot_cold 2
 # (hot-table words, cold remainder) probe_rows, stream 1, the window 1
 EXPECTED_SKEW = dict(_ZERO, probe_rows=4, bucket_probe_stream=1,
@@ -225,6 +260,20 @@ PER_DIM_KERNELS = ("probe_rows", "bucket_probe_stream", "probe_filter_rows",
 FILTER_QUERY = {"customer": "Q3.1", "supplier": "Q2.1", "part": "Q2.1",
                 "date": "Q1.1"}
 PATHS = ("cached", "cached_warm", "cold", "mega")
+# the calibration phase: random 4-byte gathers from a table past 4x the L2
+# and from one inside it, a sort and an elementwise pass, each over
+# lineorder's SF10 row count; a gather's time is priced per byte of the
+# 32-byte sectors it moves; small launches timed by the host clock
+CALIB_N = 60_000_000
+CALIB_BIG_ELEMS = 128 << 20      # 512 MiB of int32
+CALIB_SMALL_ELEMS = 4 << 20      # 16 MiB of int32
+SECTOR_BYTES = 32
+CALIB_OPS = 2000
+# a [plan] decision stands if the pick's measured time is within this
+# factor of the fastest measured alternative
+PICK_SLACK = 1.10
+# phase 6d: sampled parameter vectors per query beside the canonical one
+IVM_SAMPLED = 7
 
 
 def log(*parts):
@@ -253,9 +302,10 @@ def main() -> int:
 
     from repro_torch.core.hash_table import (EMPTY_KEY, build_table,
                                              suggest_num_buckets)
-    from repro_torch.core import (ExecutionPolicy, build_hot_table, encode,
-                                  hash_bucket, hot_hit_count, measure_skew,
-                                  pack_words, plan_probe, refine_plan,
+    from repro_torch.core import (ExecutionPolicy, build_hot_table, costmodel,
+                                  encode, hash_bucket, hot_hit_count,
+                                  measure_skew, overlay_delta, pack_words,
+                                  plan_probe, plan_query, refine_plan,
                                   top_keys)
     from repro_torch.core.skew import zipf_sample, zipf_weights
     from repro_torch.engine import (SSB_QUERIES, SSBEngine, Table,
@@ -392,6 +442,21 @@ def main() -> int:
                     f"{s.n_unique} keys, overflow {s.overflow}"
                     for d, s in engine.build_stats.items()))
     names = sorted(SSB_QUERIES)
+
+    def log_plans(eng, label):
+        """Each dimension's schedule plan with the card's estimates."""
+        for d, p in sorted(eng.plans.items()):
+            est = {k: round(v * 1e3, 4) for k, v in p.est_seconds}
+            log(f"[plan] {label} {d}: {p.schedule} (hot {p.hot_entries} / "
+                f"{p.hot_slots} slots, cold capacity {p.cold_capacity}, "
+                f"full_map {p.full_map}); estimated ms {json.dumps(est)}")
+
+    log(f"[plan] phase 4 engine: {engine.policy}; run_all on the cache "
+        f"takes {engine._plan_fusion(len(names))!r}")
+    log_plans(engine, "phase 4")
+    if any(p.schedule != "gathered" for p in engine.plans.values()):
+        raise AssertionError("the CUDA kernels' auto plans must keep "
+                             "gathered")
     fact_cols = dict(tables["lineorder"].columns)
 
     # -- 3b. kernels against plain versions (and timed) on real operands ------
@@ -601,6 +666,64 @@ def main() -> int:
     check_fused(engine, "static indexes")
     torch.cuda.empty_cache()
 
+    # -- 3c. calibration: the building blocks of the card's cost entry ------
+    cost = costmodel.HOST_COSTS["cuda"]
+    calib = {"cache_bytes": torch.cuda.get_device_properties(0).L2_cache_size}
+    cgen = torch.Generator(device="cuda")
+    cgen.manual_seed(args.seed + 5)
+
+    def gather_rate(elems):
+        """ms of ``CALIB_N`` random 4-byte reads of an ``elems``-entry
+        table, and ns per byte of the sectors they move."""
+        table = torch.zeros(elems, dtype=torch.int32, device="cuda")
+        idx = torch.randint(0, elems, (CALIB_N,), generator=cgen,
+                            device="cuda", dtype=torch.int32)
+        ms = event_ms(lambda: torch.index_select(table, 0, idx),
+                      KERNEL_REPS)
+        return ms, ms * 1e6 / (CALIB_N * SECTOR_BYTES)
+
+    g_ms, calib["gather"] = gather_rate(CALIB_BIG_ELEMS)
+    c_ms, calib["cached_gather"] = gather_rate(CALIB_SMALL_ELEMS)
+    part_tbl = engine.indexes["part"].table
+    p_ms = per_dim["probe_rows"]["part"]["ms"]
+    calib["lane"] = p_ms * 1e6 / (n_fact * part_tbl.bucket_width)
+    skeys = torch.randint(0, 1 << 30, (CALIB_N,), generator=cgen,
+                          device="cuda", dtype=torch.int32)
+    s_ms = event_ms(lambda: torch.sort(skeys, stable=True), 3)
+    calib["sort"] = s_ms * 1e6 / (CALIB_N * np.log2(CALIB_N))
+    x_ms = event_ms(lambda: skeys + 1, KERNEL_REPS)
+    calib["pass"] = x_ms * 1e6 / CALIB_N
+    tiny = torch.ones(1, dtype=torch.int32, device="cuda")
+    sync()
+    t = time.perf_counter()
+    for _ in range(CALIB_OPS):
+        tiny = tiny + 1
+    sync()
+    calib["op"] = (time.perf_counter() - t) * 1e9 / CALIB_OPS
+    del skeys, tiny
+    torch.cuda.empty_cache()
+    log(f"[calib] {smi}: gather: {CALIB_N} random 4-byte reads of a "
+        f"{CALIB_BIG_ELEMS * 4 >> 20} MiB table {g_ms:.4f} ms, "
+        f"{calib['gather']:.6f} ns per sector byte (entry: "
+        f"{cost.gather_ns_per_byte})")
+    log(f"[calib] {smi}: cached_gather: the same reads of a "
+        f"{CALIB_SMALL_ELEMS * 4 >> 20} MiB table {c_ms:.4f} ms, "
+        f"{calib['cached_gather']:.6f} ns per sector byte (entry: "
+        f"{cost.cached_gather_ns_per_byte})")
+    log(f"[calib] {smi}: cache_bytes: L2 {calib['cache_bytes']} bytes "
+        f"(entry: {cost.cache_bytes})")
+    log(f"[calib] {smi}: lane: probe_rows on part ({n_fact} probes, table "
+        f"{tuple(part_tbl.keys.shape)}) {p_ms:.4f} ms, {calib['lane']:.6f} "
+        f"ns per probe per lane (entry: {cost.lane_ns})")
+    log(f"[calib] {smi}: sort: torch.sort(stable=True) of {CALIB_N} int32 "
+        f"keys {s_ms:.4f} ms, {calib['sort']:.6f} ns per element per log2 "
+        f"(entry: {cost.sort_ns_per_elem_log2})")
+    log(f"[calib] {smi}: pass: an int32 elementwise pass over {CALIB_N} "
+        f"rows {x_ms:.4f} ms, {calib['pass']:.6f} ns per row (entry: "
+        f"{cost.pass_ns})")
+    log(f"[calib] {smi}: op: {CALIB_OPS} one-element launches by the host "
+        f"clock, {calib['op']:.1f} ns each (entry: {cost.op_ns})")
+
     # -- 4. main path: the four paths, counted --------------------------------
     baseline = SSBEngine(tables, policy=ExecutionPolicy(mode="baseline"))
 
@@ -709,6 +832,42 @@ def main() -> int:
     # dimension PKs are row indices: the static join is plain indexing
     check_numpy(res["cached"], engine, None, "static")
 
+    # [plan] run_all on the cache: plan_query's pick against both flavors
+    # (no launches: every probe is cached), and the cuda kernel's mega
+    # estimate beside the per-query mega and cold paths of this phase
+    engine.warm_cache()
+    sync()
+    ra_ms = {"mega": [], "composed": []}
+    for _ in range(3):
+        for f in ra_ms:
+            ra_ms[f].append(timed_call(
+                lambda: engine.run_all(fusion=f)) * 1e3)
+    qp = plan_query(n_fact, len(names), backend="cuda", kernel="torch")
+    best = {f: min(v) for f, v in ra_ms.items()}
+    log(f"[plan] {smi}: run_all on the cache, {len(names)} queries: "
+        f"plan_query picks {qp.fusion!r} ({qp.reason}); estimated mega "
+        f"{qp.est_mega_s * 1e3:.4f} ms, composed "
+        f"{qp.est_composed_s * 1e3:.4f} ms; measured (host clock, best of "
+        f"3) mega {best['mega']:.3f} ms, composed {best['composed']:.3f} "
+        f"ms; estimate / measured {qp.est_mega_s * 1e3 / best['mega']:.3f} "
+        f"and {qp.est_composed_s * 1e3 / best['composed']:.3f}")
+    if engine._plan_fusion(len(names)) != qp.fusion or \
+            best[qp.fusion] > PICK_SLACK * min(best.values()):
+        raise AssertionError(f"run_all's pick {qp.fusion} is not within "
+                             f"{PICK_SLACK} of the fastest: {best}")
+    qk = plan_query(n_fact, len(names), backend="cuda", kernel="cuda",
+                    num_segments=max(
+                        int(np.prod([c for *_, c in SSB_QUERIES[q].group_by]))
+                        for q in names))
+    mega_sum = sum(wall["mega"].values()) * 1e3
+    cold_sum = sum(wall["cold"].values()) * 1e3
+    log(f"[plan] {smi}: fused_query per query (kernel 'cuda'): plan_query "
+        f"picks {qk.fusion!r} ({qk.reason}); estimated mega "
+        f"{qk.est_mega_s * 1e3:.4f} ms against the mega path's "
+        f"{mega_sum:.3f} ms ({qk.est_mega_s * 1e3 / mega_sum:.3f}), "
+        f"composed {qk.est_composed_s * 1e3:.4f} ms against the cold "
+        f"path's {cold_sum:.3f} ms ({qk.est_composed_s * 1e3 / cold_sum:.3f})")
+
     # -- 5. stream path ---------------------------------------------------------
     stream_engine = SSBEngine(tables, indexes=engine.indexes,
                               policy=ExecutionPolicy(schedule="stream"))
@@ -722,16 +881,21 @@ def main() -> int:
     del stream_engine
     torch.cuda.empty_cache()
 
-    # -- 5b. forced skew-aware schedules ------------------------------------------
-    try:
-        SSBEngine(tables, indexes=engine.indexes,
-                  policy=ExecutionPolicy(schedule="auto"))
-    except NotImplementedError as e:
-        log(f"[auto] schedule='auto' on the card raises "
-            f"NotImplementedError: {e}")
-    else:
-        raise AssertionError("schedule='auto' ran on the card: it must "
-                             "raise until the planner slice")
+    # -- 5b. skew-aware schedules: auto, then forced -----------------------------
+    auto_eng = SSBEngine(tables, indexes=engine.indexes,
+                         policy=ExecutionPolicy(schedule="auto"))
+    log_plans(auto_eng, "schedule='auto'")
+    if any(p.schedule != "gathered" for p in auto_eng.plans.values()):
+        raise AssertionError("schedule='auto' on the CUDA kernels must keep "
+                             "gathered")
+    drive_paths(auto_eng, ("cached", "cold"))  # warm-up pass
+    (res_x, _), got = counted(lambda: drive_paths(auto_eng,
+                                                   ("cached", "cold")))
+    check_counts(got, EXPECTED_CACHED_COLD, "schedule='auto' path")
+    check_agree(res_x, res["cached"], ("cached", "cold"), "auto")
+    log(f"[agree] schedule='auto' on the card: all {len(names)} queries, "
+        "cached and cold, equal phase 4's, bit for bit")
+    del auto_eng, res_x
     unfiltered = [d for q in names for d in SSB_QUERIES[q].joined_dims()
                   if d not in SSB_QUERIES[q].dim_filters]
 
@@ -761,7 +925,7 @@ def main() -> int:
             if p.schedule != sched or (sched == "hot_cold"
                                        and p.full_map != full):
                 raise AssertionError(f"{sched} plan of {d}: {p}")
-        want = (EXPECTED_DEDUPED if sched == "deduped"
+        want = (EXPECTED_CACHED_COLD if sched == "deduped"
                 else hot_cold_launches(eng_s.plans))
         drive_paths(eng_s, ("cached", "cold"))  # warm-up pass
         (res_x, wall_sched[sched]), launches_sched[sched] = counted(
@@ -785,6 +949,7 @@ def main() -> int:
     sync()
     log(f"[mutation] two engines (cuda, torch) built in "
         f"{time.perf_counter() - t0:.3f} s")
+    log_plans(twin, "torch twin (the model's own picks)")
     torch.cuda.reset_peak_memory_stats()
     rng = np.random.default_rng(args.seed + 1)
     key_row = {}      # dim -> host key->row map, -1 where a key joins nothing
@@ -866,6 +1031,41 @@ def main() -> int:
         "mega == torch, bit for bit")
     check_numpy(res_live["cached"], mut, key_row, "live deltas")
 
+    # the delta overlay per dimension (device ms: the plain overlay_delta
+    # after the main table's probe), and what compaction_plan prices
+    overlay_ms, cplans = {}, {}
+    for dim in DIM_PK:
+        idx = effective_index(mut.indexes[dim])
+        fk = fact_cols[FACT_FK[dim]]
+        pr = lookup(dataclasses.replace(idx, delta=None), fk, impl="cuda")
+        overlay_ms[dim] = event_ms(lambda: overlay_delta(pr, idx.delta, fk),
+                                   3)
+        cplans[dim] = mut.compaction_plan(dim)
+        del pr
+    torch.cuda.empty_cache()
+
+    # auto_compact=True: the same ops, the card's entry deciding the folds;
+    # the answers must equal the auto_compact=False engine's
+    auto_c = SSBEngine(own_dims())
+    for dim, dels, ups, pays, rows_new in mut_ops:
+        for label, plan in (
+                ("delete", auto_c.ingest(dim, dels, op="delete")),
+                ("upsert", auto_c.ingest(dim, ups, pays, op="upsert"))):
+            log(f"[plan] ingest({dim!r}, {label}, auto_compact=True) of "
+                f"{dels.shape[0]} keys: {plan}")
+        auto_c.append_rows(dim, rows_new)
+        log(f"[plan] append_rows({dim!r}, auto_compact=True) of "
+            f"{dels.shape[0]} rows: compactions so far "
+            f"{auto_c.ingest_info()['compactions']}, delta live "
+            f"{auto_c.indexes[dim].delta is not None}")
+    check_agree({"auto_compact": auto_c.run_all(fusion="composed")},
+                res_live["cached"], ("auto_compact",), "auto_compact=True")
+    log(f"[agree] auto_compact=True ({auto_c.ingest_info()['compactions']} "
+        f"compactions): all {len(names)} queries equal the "
+        "auto_compact=False engine's, bit for bit")
+    del auto_c
+    torch.cuda.empty_cache()
+
     compact_ms = {}
     for dim in DIM_PK:
         compact_ms[dim] = round(timed_call(lambda: mut.compact(dim)) * 1e3, 3)
@@ -877,6 +1077,14 @@ def main() -> int:
         f"{d}: {s.num_buckets}x{s.bucket_width} buckets, {s.n_unique} keys, "
         f"{s.n_build} rows, grow retries {s.grow_retries}"
         for d, s in mut.build_stats.items()))
+    for dim, cp in cplans.items():
+        log(f"[plan] {smi}: {dim} delta: compaction_plan {cp.compact} "
+            f"({cp.reason}); overlay estimated "
+            f"{cp.est_overlay_s * 1e3:.4f} ms, measured {overlay_ms[dim]:.4f} "
+            f"ms (device; {cp.est_overlay_s * 1e3 / overlay_ms[dim]:.3f}); "
+            f"merge estimated {cp.est_merge_s * 1e3:.4f} ms, compact "
+            f"measured {compact_ms[dim]:.3f} ms (host clock; "
+            f"{cp.est_merge_s * 1e3 / compact_ms[dim]:.3f})")
     drive_mut()  # warm-up pass
     (res_c, wall_c), launches_c = counted(drive_mut)
     peak_mut = torch.cuda.max_memory_allocated()
@@ -1035,6 +1243,26 @@ def main() -> int:
     split["extend_wall"] = [timed_call(lambda: [f() for f in extend]) * 1e3
                             for _ in range(5)]
     del extend, cached
+    # [plan] the planner's extend-or-reprobe prices beside the tail
+    # extension and a reprobe of the whole padded column (device ms)
+    fa_plans = {d: fa._fact_append_plan(d, bp, n0) for d in DIM_PK}
+    split["reprobe"] = {d: event_ms(lambda d=d: fa._join(d), 3)
+                        for d in DIM_PK}
+    torch.cuda.empty_cache()
+    for d, ap in fa_plans.items():
+        log(f"[plan] {smi}: {d} fact append of {n_batch} rows: "
+            f"plan_fact_append {ap.reason}; tail estimated "
+            f"{ap.est_tail_s * 1e3:.4f} ms, lookup + splice measured "
+            f"{split['extend'][d]:.4f} ms ("
+            f"{ap.est_tail_s * 1e3 / split['extend'][d]:.3f}); reprobe "
+            f"estimated {ap.est_reprobe_s * 1e3:.4f} ms, measured "
+            f"{split['reprobe'][d]:.4f} ms over {fact.n_physical} rows ("
+            f"{ap.est_reprobe_s * 1e3 / split['reprobe'][d]:.3f}); the "
+            f"extension {split['reprobe'][d] / split['extend'][d]:.2f}x "
+            "faster")
+        if not ap.extend or split["extend"][d] > split["reprobe"][d]:
+            raise AssertionError(f"{d}: the append plan {ap} disagrees with "
+                                 "the measurement")
     cols = batches[-1]
     pad = {FACT_FK[d]: EMPTY_KEY for d in DIM_PK}
     split["validate"] = [timed_call(lambda: [
@@ -1466,7 +1694,17 @@ def main() -> int:
                 per[q] = round(min(timed_call(lambda: BatchRunner().run_batch(
                     ref_snap, q, ps, flavor=f)) for _ in range(2)) * 1e3, 3)
             serve["ms"][(f, w)] = per
+    n_rows_6c = ref_snap.tables["lineorder"].n_rows
     ref_snap.release()
+    for w in (1, 8):
+        est = costmodel.batch_serve_seconds(w, n_rows_6c,
+                                            backend="cuda") * 1e3
+        meas = serve["ms"][("batch", w)]
+        log(f"[plan] {smi}: batch dispatch of width {w} over {n_rows_6c} "
+            f"rows: estimated {est:.4f} ms; measured (wall ms) "
+            f"{json.dumps(meas)}; estimate / measured "
+            f"{min(est / v for v in meas.values()):.3f} to "
+            f"{max(est / v for v in meas.values()):.3f}")
     # a second pass with a background compaction of customer's delta
     dim_ops("customer")
     snaps = {mv.epoch: mv.snapshot()}
@@ -1543,6 +1781,161 @@ def main() -> int:
     log(f"[launches] phase 6c in all (MVCC reads and appends, both serving "
         f"pumps): {json.dumps(launches_6c)}")
     log(f"[6c] snapshots and serving: {secs_6c:.1f} s")
+
+    # -- 6d. maintained views --------------------------------------------------
+    from repro_torch.ivm import MaintainedSuite
+    t_6d = time.perf_counter()
+    rng = np.random.default_rng(args.seed + 4)
+    iv = SSBEngine(own_dims())
+    iv.warm_cache()
+    sync()
+    ivm = {"events": []}
+    t = time.perf_counter()
+    suite = MaintainedSuite.attach(iv)
+    ivm["attach_s"] = time.perf_counter() - t
+
+    def check_suite(full, label):
+        """The suite is fresh and equals ``full`` (13 answers) bit for
+        bit."""
+        if not suite.fresh_at(iv.epoch):
+            raise AssertionError(f"maintained views ({label}) not fresh: "
+                                 f"valid {suite.valid}, epoch {suite.epoch} "
+                                 f"vs {iv.epoch}")
+        got = suite.results()
+        for q in names:
+            total, groups = full[q]
+            if got[q][0] != int(total) or \
+                    not np.array_equal(got[q][1], groups.cpu().numpy()):
+                raise AssertionError(f"maintained {q} ({label}) differs "
+                                     "from run_all")
+
+    check_suite(iv.run_all(), "attach, run_all with the default policy")
+
+    def iv_event(label, fn):
+        """One mutation: its maintenance ms and rows touched (the suite's
+        counters), then run_all(fusion="composed") timed (the recompute
+        the event forces) and held against the suite."""
+        st0 = dict(suite.stats)
+        fn()
+        sync()
+        t = time.perf_counter()
+        full = iv.run_all(fusion="composed")
+        sync()
+        rec = time.perf_counter() - t
+        check_suite(full, label)
+        ivm["events"].append({
+            "event": label,
+            "maintain_ms": round((suite.stats["maintain_s"]
+                                  - st0["maintain_s"]) * 1e3, 3),
+            "rows_touched": suite.stats["rows_touched"]
+            - st0["rows_touched"],
+            "recompute_ms": round(rec * 1e3, 3)})
+
+    def iv_dim_ops(dim):
+        """Deletes then upserts of MUTATION_FRAC of ``dim``'s keys."""
+        pk = iv.tables[dim][DIM_PK[dim]].cpu().numpy()
+        n = pk.shape[0]
+        k = max(1, int(n * MUTATION_FRAC))
+        dels = rng.choice(pk, k, replace=False).astype(np.int32)
+        ups = rng.choice(pk, k, replace=False).astype(np.int32)
+        pays = rng.integers(0, n, k, dtype=np.int32)
+        iv_event(f"ingest delete {dim} ({k} keys)", lambda: iv.ingest(
+            dim, dels, op="delete", auto_compact=False))
+        iv_event(f"ingest upsert {dim} ({k} keys)", lambda: iv.ingest(
+            dim, ups, pays, op="upsert", auto_compact=False))
+
+    iv_event(f"append_fact_rows ({n_batch} rows)", lambda: iv.append_fact_rows(
+        generate_fact_batch(iv.tables, n_batch, rng)))
+    snap = iv.snapshot()
+    if snap.maintained is None:
+        raise AssertionError("a snapshot of a fresh suite froze no answers")
+    frozen = {q: (t, g.copy()) for q, (t, g) in snap.maintained.items()}
+    iv_event(f"append_fact_rows ({n_batch} rows)", lambda: iv.append_fact_rows(
+        generate_fact_batch(iv.tables, n_batch, rng)))
+    at_snap = snap.run_all(fusion="composed")
+    for q in names:
+        if snap.maintained[q][0] != frozen[q][0] or \
+                frozen[q][0] != int(at_snap[q][0]) or \
+                not np.array_equal(frozen[q][1], at_snap[q][1].cpu().numpy()):
+            raise AssertionError(f"the snapshot's frozen {q} moved or "
+                                 "differs from its run_all")
+    snap.release()
+    log(f"[agree] maintained views: a snapshot froze all {len(names)} "
+        "answers; after the next append they equal the snapshot's run_all")
+    iv_dim_ops("part")
+    iv_dim_ops("customer")
+    n = iv.tables["supplier"].n_rows
+    k = max(1, int(n * MUTATION_FRAC))
+    src = rng.integers(0, n, k)
+    rows_new = {c: v.cpu().numpy()[src]
+                for c, v in iv.tables["supplier"].columns.items()}
+    rows_new["suppkey"] = np.arange(n, n + k, dtype=np.int32)
+    iv_event(f"append_rows supplier ({k} rows)", lambda: iv.append_rows(
+        "supplier", rows_new, auto_compact=False))
+    iv_event("compact part", lambda: iv.compact("part"))
+    tbl = iv.indexes["date"].table
+    iv.table_update("date", [0], tbl.keys[:1].clone(), tbl.values[:1].clone())
+    if suite.valid or suite.stats["invalidations"] != 1:
+        raise AssertionError("table_update did not invalidate the suite")
+    t = time.perf_counter()
+    suite.rebuild()
+    ivm["rebuild_s"] = time.perf_counter() - t
+    check_suite(iv.run_all(fusion="composed"), "rebuilt")
+    log(f"[agree] maintained views at SF{args.sf:g}: after each of "
+        f"{len(ivm['events'])} events, and rebuilt after a table_update "
+        f"invalidated them, all {len(names)} answers equal run_all, bit "
+        "for bit")
+    # serving: canonical requests from the frozen views, the rest batched
+    prng = np.random.default_rng(args.seed + 4)
+    reqs = [(q, None) for q in names] + [
+        (q, PARAM_QUERIES[q].sample(prng)) for q in names
+        for _ in range(IVM_SAMPLED)]
+    canonical = sum(p is None or tuple(p) == PARAM_QUERIES[q].defaults
+                    for q, p in reqs)
+    ref_snap = iv.snapshot()
+    want = {i: BatchRunner().run_batch(
+        ref_snap, q, [PARAM_QUERIES[q].defaults if p is None else p],
+        flavor="composed")[0] for i, (q, p) in enumerate(reqs)}
+    sched = QueryScheduler(iv, ServeConfig(max_queue=len(reqs)))
+    tickets = [sched.submit(q, p) for q, p in reqs]
+    t = time.perf_counter()
+    sched.pump()
+    sync()
+    ivm["serve_s"] = time.perf_counter() - t
+    info = sched.info()
+    sched.close()
+    check_clean(info, tickets, "maintained views")
+    if info["maintained_served"] != canonical or \
+            info["completed"] != len(reqs):
+        raise AssertionError(f"maintained serving: {json.dumps(info)}, "
+                             f"{canonical} canonical requests")
+    for i, tk in enumerate(tickets):
+        r = tk.response
+        total, groups = want[i]
+        if not r.ok or r.epoch != ref_snap.epoch or r.total != total or \
+                not np.array_equal(r.groups, groups):
+            raise AssertionError(f"maintained serving: {reqs[i]} differs "
+                                 "from the composed flavor")
+    ref_snap.release()
+    log(f"[agree] maintained serving: {len(reqs)} requests, "
+        f"{info['maintained_served']} answered from the maintained views "
+        f"(the {canonical} canonical ones), {info['batches']} dispatches "
+        "for the rest, all equal the composed flavor, bit for bit")
+    suite.detach()
+    del suite, iv, sched, tickets, want
+    torch.cuda.empty_cache()
+    secs_6d = time.perf_counter() - t_6d
+    log(f"[ivm] {smi}: MaintainedSuite.attach at SF{args.sf:g} "
+        f"({n_fact} fact rows): {ivm['attach_s']:.3f} s; rebuild "
+        f"{ivm['rebuild_s']:.3f} s")
+    for ev in ivm["events"]:
+        log(f"[ivm] {smi}: {ev['event']}: maintained in "
+            f"{ev['maintain_ms']} ms, {ev['rows_touched']} rows touched; "
+            f"recompute (run_all composed after it) {ev['recompute_ms']} ms")
+    log(f"[ivm] {smi}: serving {len(reqs)} requests "
+        f"({info['maintained_served']} maintained): {ivm['serve_s']:.3f} s, "
+        f"{len(reqs) / ivm['serve_s']:.2f} requests/s")
+    log(f"[6d] maintained views: {secs_6d:.1f} s")
 
     # -- 7. skew path ---------------------------------------------------------------
     dev = engine.device
@@ -1643,6 +2036,30 @@ def main() -> int:
             f"{hits} hits; four schedules bit-identical; window {WINDOW} "
             f"filters {share:.6f} of the probes (bit-identical to its plain "
             f"version); device ms: {json.dumps({k: round(v, 4) for k, v in ms.items()})}")
+        # [plan] the card's estimates beside the measured lookups
+        auto_plan = plan_probe(stats, bucket_width=sidx.table.bucket_width,
+                               backend="cuda", impl="cuda",
+                               code_space=SKEW_KEYS,
+                               hash_mode=sidx.table.hash_mode)
+        own = plan_probe(stats, bucket_width=sidx.table.bucket_width,
+                         backend="cuda", impl="torch", code_space=SKEW_KEYS,
+                         hash_mode=sidx.table.hash_mode)
+        est = {k: v * 1e3 for k, v in auto_plan.est_seconds}
+        fastest = min(SCHEDULES, key=ms.get)
+        log(f"[plan] {smi}: s={zs}: the CUDA kernels keep "
+            f"{auto_plan.schedule!r} (the model's own pick: "
+            f"{own.schedule!r}); estimated ms "
+            f"{json.dumps({k: round(v, 4) for k, v in est.items()})}; "
+            f"measured ms {json.dumps({k: round(ms[k], 4) for k in SCHEDULES})}; "
+            f"estimate / measured "
+            f"{json.dumps({k: round(est[k] / ms[k], 3) for k in SCHEDULES})}; "
+            f"fastest measured {fastest!r}, gathered at "
+            f"{ms['gathered'] / ms[fastest]:.3f}x of it")
+        if auto_plan.schedule != "gathered" or \
+                ms["gathered"] > PICK_SLACK * ms[fastest]:
+            raise AssertionError(f"s={zs}: the pick {auto_plan.schedule} is "
+                                 f"not within {PICK_SLACK} of the fastest "
+                                 f"schedule {fastest}: {ms}")
         if zs == TIMED_S:
             moved = nbytes(keys) + SKEW_PROBES  # keys in, one byte out
             b_ms, b_by = bound(moved, SKEW_PROBES * (WINDOW - 1))

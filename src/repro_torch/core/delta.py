@@ -249,6 +249,28 @@ def delta_entries(delta: DeltaTable
     return k, w, k != EMPTY_KEY
 
 
+def weighted_entries(delta: DeltaTable
+                     ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Flat (keys, payloads, weights) Z-set view of the buffered ops.
+
+    The incremental-view-maintenance export: each live delta entry is one
+    weighted record, an insert/upsert weight ``+1`` with its payload row,
+    a tombstone weight ``-1`` (payload 0), an empty slot weight ``0``.
+    The delta holds the net effect per key (one slot, last write wins),
+    so applying these weights to a base key->row map gives the overlay a
+    probe sees: ``+1`` overrides the mapping, ``-1`` removes it.
+    """
+    k = delta.keys.reshape(-1)
+    w = delta.words.reshape(-1)
+    live = k != EMPTY_KEY
+    is_tomb = w == TOMBSTONE
+    one = torch.ones_like(w)
+    weight = torch.where(live, torch.where(is_tomb, -one, one),
+                         torch.zeros_like(w))
+    payload = torch.where(live & ~is_tomb, w >> 1, torch.zeros_like(w))
+    return k, payload, weight
+
+
 # ---------------------------------------------------------------------------
 # Merge/compaction: fold delta entries into the main table bucket-locally
 # ---------------------------------------------------------------------------

@@ -1,7 +1,7 @@
-"""Planning: the probe schedule per dimension, compaction, fact appends.
+"""Planning: probe schedules, compaction, fact appends, serving, fusion.
 
-PyTorch port of the probe-schedule and compaction parts of
-``repro.core.planner``.  ``plan_probe`` is the paper's skew-adaptive
+PyTorch port of ``repro.core.planner`` without the checkpoint planner
+(``plan_checkpoint``: the durability slice).  ``plan_probe`` is the paper's skew-adaptive
 choice (§3.3) realized as planning: fed with the fact-side ``SkewStats``
 recorded at index build and the index's bucket geometry, it prices every
 probe schedule through ``costmodel.probe_schedule_seconds`` and picks
@@ -12,15 +12,14 @@ only when forced.  A non-default schedule needs a ``GATHERED_MARGIN`` win.
 its main table now (and in which flavor), ``plan_fact_append`` whether a
 cached probe is extended over an appended fact tail or re-probed,
 ``skew_drift`` whether the fact-side skew moved enough since it was
-measured to re-plan, and ``plan_batch`` how many serving requests one
-dispatch takes.
+measured to re-plan, ``plan_batch`` how many serving requests one
+dispatch takes, and ``plan_query`` whether a query suite runs as one
+fused dispatch ("mega") or per query ("composed").
 
-Pricing on a CUDA card waits for the planner slice (ROADMAP Queue 1 item
-5): ``costmodel`` has no ``"cuda"`` entry, so on that backend
-``plan_probe`` needs ``force`` and ``plan_compaction`` raises
-``NotImplementedError``, as do ``plan_fact_append`` and ``plan_batch``
-(the serving tier prices on the ``"cpu"`` entry, as the JAX package's
-does on every device).  The fusion planner waits for the same slice.
+Every planner prices on ``costmodel.HOST_COSTS[backend]``: ``"cpu"`` (the
+reference's entry; every plan there equals the JAX package's) or
+``"cuda"`` (measured on an H100); any other backend raises
+``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -114,22 +113,9 @@ def plan_probe(stats: SkewStats, *, bucket_width: int, backend: str = "cpu",
     (``cold_capacity == 0``).  ``impl="cuda"`` keeps the gathered schedule
     unless forced, as the reference's ``"pallas"`` does; ``"torch"`` (its
     ``"xla"``) is planned.  ``force`` overrides the decision but keeps the
-    estimates and the hot/cold geometry selection.
-
-    On a backend with no cost entry (``"cuda"`` until the planner slice)
-    nothing is priced: ``force`` is required (``NotImplementedError``
-    without it), ``est_seconds`` is ``()``, and a forced ``hot_cold``
-    that is not a full map replicates ``MAX_HOT_ENTRIES`` keys, the
-    reference's own fallback when no grid point was priced.  This is a
-    stated rule, not a priced pick: 32,768 entries make a 65,536-slot
-    direct map of 512 KiB, resident in the H100's 50 MB L2, and the
-    largest grid point leaves the smallest cold stream.
+    estimates and the hot/cold geometry selection.  Raises
+    ``NotImplementedError`` on a backend the cost model has no entry for.
     """
-    priced = backend in costmodel.HOST_COSTS
-    if not priced and force is None:
-        raise NotImplementedError(
-            f"plan_probe on backend {backend!r} needs force=: schedules are "
-            "priced there with the planner slice (ROADMAP Queue 1 item 5)")
     m, distinct = stats.n, stats.distinct
     full_map = (code_space is not None and hash_mode == "identity"
                 and _next_pow2(code_space) <= _next_pow2(
@@ -141,26 +127,24 @@ def plan_probe(stats: SkewStats, *, bucket_width: int, backend: str = "cpu",
             bucket_width=bucket_width, backend=backend,
             delta_slots=delta_slots, **kw)
 
-    best_h, ests = 0, {}
-    if priced:
-        # best hot-table size among the measured grid points
-        if full_map:
-            best_h = min(code_space, MAX_HOT_ENTRIES)
-            best_hot_est = est("hot_cold", cold_capacity=0,
-                               hot_slots=_next_pow2(max(2, code_space)))
-        else:
-            best_hot_est = float("inf")
-            for h in TOP_SHARE_GRID:
-                if h > MAX_HOT_ENTRIES:
-                    continue
-                cov = stats.coverage(min(h, distinct))
-                _, slots = hot_geometry(stats, h, code_space)
-                e = est("hot_cold", cold_capacity=cold_capacity_for(m, cov),
-                        hot_slots=slots)
-                if e < best_hot_est:
-                    best_h, best_hot_est = min(h, distinct), e
-        ests = {"gathered": est("gathered"), "stream": est("stream"),
-                "deduped": est("deduped"), "hot_cold": best_hot_est}
+    # best hot-table size among the measured grid points
+    if full_map:
+        best_h = min(code_space, MAX_HOT_ENTRIES)
+        best_hot_est = est("hot_cold", cold_capacity=0,
+                           hot_slots=_next_pow2(max(2, code_space)))
+    else:
+        best_h, best_hot_est = 0, float("inf")
+        for h in TOP_SHARE_GRID:
+            if h > MAX_HOT_ENTRIES:
+                continue
+            cov = stats.coverage(min(h, distinct))
+            _, slots = hot_geometry(stats, h, code_space)
+            e = est("hot_cold", cold_capacity=cold_capacity_for(m, cov),
+                    hot_slots=slots)
+            if e < best_hot_est:
+                best_h, best_hot_est = min(h, distinct), e
+    ests = {"gathered": est("gathered"), "stream": est("stream"),
+            "deduped": est("deduped"), "hot_cold": best_hot_est}
 
     if force is not None:
         schedule = force
@@ -243,8 +227,6 @@ def plan_compaction(*, delta_entries: int, delta_slots: int,
     snapshot holds the main-table planes) prices the swap flavor, dearer
     by a copy of the planes, which defers amortized compactions while
     readers hold old epochs; the occupancy triggers hold regardless.
-    Raises ``NotImplementedError`` on a backend the cost model has no
-    entry for.
     """
     overlay = costmodel.delta_overlay_seconds(
         expected_probes, delta_slots, bucket_width=bucket_width,
@@ -293,8 +275,7 @@ def plan_fact_append(plan: SchedulePlan, *, n_tail: int, n_cached: int,
     ``n_tail`` is the pow2-padded append batch, ``n_cached`` the cached
     probe stream it extends.  Extension probes only the tail and splices;
     reprobing pays the full schedule over ``n_cached + n_tail`` rows.  The
-    tail wins whenever the batch is small next to the stream.  Raises
-    ``NotImplementedError`` on a backend the cost model has no entry for.
+    tail wins whenever the batch is small next to the stream.
     """
     if n_tail == 0:
         return FactAppendPlan(extend=False, reason="empty",
@@ -343,8 +324,7 @@ def plan_batch(*, queue_depth: int, slack_s: float | None, n_rows: int,
     for the whole dispatch: the width halves until the modeled dispatch,
     times ``BATCH_SLACK_FACTOR``, fits the tightest member's remaining
     slack.  ``slack_s=None`` (no deadline in the batch) leaves depth and
-    ``max_batch`` to decide.  Raises ``NotImplementedError`` on a backend
-    the cost model has no entry for.
+    ``max_batch`` to decide.
     """
     size = max(1, min(queue_depth, max_batch))
     reason = "depth"
@@ -360,3 +340,65 @@ def plan_batch(*, queue_depth: int, slack_s: float | None, n_rows: int,
                                                   backend=backend),
         est_single_s=costmodel.batch_serve_seconds(1, n_rows,
                                                    backend=backend))
+
+
+# ---------------------------------------------------------------------------
+# Query-program fusion: one fused dispatch ("mega") or per query
+# ---------------------------------------------------------------------------
+
+# The reference's gate, sized for the Pallas kernel's accumulator resident
+# in TPU VMEM: on "cpu" a larger group-key space takes the composed path
+# (reason "vmem"), as there.
+MAX_MEGA_SEGMENTS = 1 << 21
+# The card's fused_query has no such ceiling (kernels/csrc/fused_query.cu,
+# launch_query_as): one segment keeps a register sum per thread, up to
+# kMaxSharedSegments (12,288) a shared-memory histogram per block, and
+# beyond that the rows add into the global int32 histogram in device
+# memory.  What bounds it there is the int32 segment id.
+MAX_MEGA_SEGMENTS_CUDA = 2**31 - 1
+
+
+@dataclasses.dataclass(frozen=True)
+class QueryPlan:
+    """Fusion decision for a query (suite): mega one-dispatch or composed."""
+
+    fusion: str          # "mega" | "composed"
+    reason: str          # "modeled" | "vmem" | "segments" | "interpret"
+    #                      | "forced"
+    est_mega_s: float
+    est_composed_s: float
+
+    @property
+    def modeled_speedup(self) -> float:
+        return self.est_composed_s / max(self.est_mega_s, 1e-12)
+
+
+def plan_query(n_rows: int, n_queries: int = 1, *, backend: str = "cpu",
+               kernel: str = "torch", num_segments: int = 1,
+               force: str | None = None) -> QueryPlan:
+    """Pick the query-program shape: one fused dispatch ("mega") or one
+    dispatch per query and stage ("composed").
+
+    The decision is ``fused_query_seconds`` against
+    ``composed_query_seconds``, behind two gates: ``fused_query``
+    (``kernel="cuda"``) on a CPU tensor runs its plain version, priced as
+    the reference's interpreter, and never wins (reason "interpret"; on
+    ``"cuda"`` it is compiled); and a group-key space past the backend's
+    segment limit takes the composed path (``MAX_MEGA_SEGMENTS``, reason
+    "vmem", on ``"cpu"``; ``MAX_MEGA_SEGMENTS_CUDA``, reason "segments",
+    on ``"cuda"``).  ``force`` bypasses the model.
+    """
+    mega_s = costmodel.fused_query_seconds(n_rows, n_queries, backend,
+                                           kernel=kernel)
+    composed_s = costmodel.composed_query_seconds(n_rows, n_queries, backend)
+    if force in ("mega", "composed"):
+        return QueryPlan(force, "forced", mega_s, composed_s)
+    if kernel == "cuda" and backend != "cuda":
+        return QueryPlan("composed", "interpret", mega_s, composed_s)
+    if backend == "cuda":
+        if num_segments > MAX_MEGA_SEGMENTS_CUDA:
+            return QueryPlan("composed", "segments", mega_s, composed_s)
+    elif num_segments > MAX_MEGA_SEGMENTS:
+        return QueryPlan("composed", "vmem", mega_s, composed_s)
+    fusion = "mega" if mega_s < composed_s else "composed"
+    return QueryPlan(fusion, "modeled", mega_s, composed_s)

@@ -3,12 +3,9 @@
 PyTorch port of ``repro.core.policy``.  ``kernel="torch"`` is the plain
 gather math (the JAX package's ``"xla"``); ``"cuda"`` runs the hand-written
 kernels (its ``"pallas"``).  Execution is eager, so the JAX ``interpret``
-knob has no counterpart.
-
-``fusion="auto"`` is refused at construction, naming the planner slice
-that brings it: it would price a CUDA backend with CPU costs.
-``schedule="auto"`` is accepted; an engine on the card refuses it until
-that slice (``SSBEngine``), for the same reason.
+knob has no counterpart.  The defaults are the reference's
+``schedule="auto"`` and ``fusion="auto"``: the planner prices both on the
+engine's device (``core/costmodel.py``, its ``"cpu"`` or ``"cuda"`` entry).
 """
 from __future__ import annotations
 
@@ -17,26 +14,15 @@ import dataclasses
 MODES = ("jspim", "baseline", "pid")
 KERNELS = ("torch", "cuda")
 SCHEDULES = ("auto", "gathered", "stream", "deduped", "hot_cold")
-FUSIONS = ("mega", "composed")
-
-_NOT_PORTED = {
-    ("fusion", "auto"): "the planner slice (ROADMAP Queue 1 item 5)",
-}
-
+FUSIONS = ("auto", "mega", "composed")
 
 _ALLOWED = {"mode": MODES, "kernel": KERNELS, "schedule": SCHEDULES,
             "fusion": FUSIONS}
 
 
 def check_value(field: str, value) -> None:
-    """Raise unless ``value`` is a ported value of policy ``field``:
-    ``NotImplementedError`` naming the slice that brings a known value,
-    ``ValueError`` for an unknown one."""
-    slice_ = _NOT_PORTED.get((field, value))
-    if slice_ is not None:
-        raise NotImplementedError(
-            f"{field}={value!r} is not ported to PyTorch yet; it arrives "
-            f"with {slice_}")
+    """Raise ``ValueError`` unless ``value`` is a value of policy
+    ``field``."""
     if value not in _ALLOWED[field]:
         raise ValueError(f"unknown {field} {value!r}")
 
@@ -54,18 +40,20 @@ class ExecutionPolicy:
                  asynchronous key-row copies), "deduped" (coalesce, probe
                  the unique keys), "hot_cold" (a replicated hot table plus
                  a deduped cold remainder), or "auto" (the planner picks
-                 one per dimension from the fact-side skew; CPU engines
-                 only until the planner slice).  Filtered cold probes take
-                 the filter kernels under every schedule.
+                 one per dimension from the fact-side skew; the CUDA
+                 kernels keep "gathered").  Filtered cold probes take the
+                 filter kernels under every schedule.
     fusion    -- "mega" one fused_query launch per query, "composed" the
-                 per-stage pipeline.
+                 per-stage pipeline, "auto" asks ``plan_query`` for
+                 ``run_all`` on the probe cache (cold suites and single
+                 queries take the composed path).
     use_cache -- default for the cross-query probe cache on ``run``.
     """
 
     mode: str = "jspim"
     kernel: str = "cuda"
-    schedule: str = "gathered"
-    fusion: str = "composed"
+    schedule: str = "auto"
+    fusion: str = "auto"
     use_cache: bool = True
 
     def __post_init__(self):

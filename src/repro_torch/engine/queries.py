@@ -29,17 +29,15 @@ Probe schedules (§3.3): every dimension carries a ``SchedulePlan``
 index was built.  ``schedule="auto"`` lets the planner pick per dimension;
 "gathered" / "stream" / "deduped" / "hot_cold" force one everywhere.  A
 dimension is re-planned when its delta appears or grows and after it is
-compacted.  On a CUDA engine ``"auto"`` raises ``NotImplementedError`` at
-construction until the planner slice (the cost model has no card entry);
-the forced schedules run.
+compacted.  Every planner prices on the engine's device type, the cost
+model's ``"cpu"`` or ``"cuda"`` entry (``core/costmodel.py``).
+``fusion="auto"`` asks ``plan_query`` how ``run_all`` runs on the probe
+cache; a cold suite and a single ``run`` take the composed path.
 
 Mutation (§3.2.3): ``ingest`` / ``append_rows`` buffer dimension ops in a
-per-dimension delta, ``compact`` folds it back, and the update commands
-rewrite table cells; each drops the dimension's cached probes.
-Compaction planning is priced only on a CPU engine: on a CUDA engine
-``compaction_plan`` and ``ingest(auto_compact=True)`` raise
-``NotImplementedError`` until the planner slice, and the caller compacts
-with ``compact(dim)``.
+per-dimension delta, ``compact`` folds it back (``auto_compact`` asks
+``plan_compaction``), and the update commands rewrite table cells; each
+drops the dimension's cached probes.
 
 Fact-side streaming append: ``append_fact_rows`` lands new lineorder rows
 in a pow2-bucketed capacity tail (``Table.append_tail``) and *extends* the
@@ -62,8 +60,13 @@ checks the buffer *generation* it would write against the generations
 the live snapshots pin, and writes a fresh generation instead when one is
 pinned; once the last snapshot pinning it is released (or collected), the
 in-place writes re-arm.  Mutations serialize under one reentrant lock;
-queries and snapshots take none.  Durability and mutation hooks wait for
-later slices.
+queries and snapshots take none.
+
+Mutation hooks: every published mutation is delivered as a
+``MutationEvent`` to the hooks registered with ``add_mutation_hook`` (the
+incremental view maintenance of ``repro_torch.ivm`` rides on them), in
+mutation order, under the engine lock, once its epoch has published.
+Durability (the write-ahead log) waits for a later slice.
 """
 from __future__ import annotations
 
@@ -76,7 +79,6 @@ from typing import Callable
 import numpy as np
 import torch
 
-from repro_torch.core import costmodel
 from repro_torch.core import hash_table as _ht
 from repro_torch.core.delta import TOMBSTONE, delta_is_empty, delta_stats
 from repro_torch.core.dictionary import encode
@@ -85,7 +87,7 @@ from repro_torch.core.planner import (FACT_REMEASURE_FRAC, TOP_SHARE_DRIFT,
                                       CompactionPlan, FactAppendPlan,
                                       SchedulePlan, plan_compaction,
                                       plan_fact_append, plan_probe,
-                                      refine_plan, skew_drift)
+                                      plan_query, refine_plan, skew_drift)
 from repro_torch.core.policy import (ExecutionPolicy, check_value,
                                      resolve_policy)
 from repro_torch.core.skew import measure_skew, top_keys
@@ -125,6 +127,25 @@ def _check_batch_col(arg: str, values, *,
         raise ValueError(f"{arg}: length {a.shape[0]} != {expect_len} "
                          "(ragged batch)")
     return a.astype(np.int32, copy=False)
+
+
+@dataclasses.dataclass(frozen=True)
+class MutationEvent:
+    """One published mutation, as delivered to registered hooks.
+
+    ``kind`` is ``ingest`` / ``append_rows`` / ``append_fact_rows`` /
+    ``compact`` / ``raw_update``, ``meta`` and ``arrays`` the validated
+    batch (host numpy arrays), and ``epoch`` / ``fact_epoch`` the engine's
+    counters at delivery, after the mutation published: a hook that has
+    processed the event is exactly as fresh as the engine.  Delivery runs
+    under the engine's mutation lock, in mutation order.
+    """
+
+    kind: str
+    meta: dict
+    arrays: dict
+    epoch: int
+    fact_epoch: int
 
 
 @dataclasses.dataclass(frozen=True)
@@ -333,6 +354,7 @@ class _QueryRunner:
     """
 
     policy: ExecutionPolicy
+    device: torch.device
     tables: dict[str, Table]
     indexes: dict[str, DimIndex]
     plans: dict[str, SchedulePlan]
@@ -401,7 +423,8 @@ class _QueryRunner:
         cache; ``use_cache=False`` probes cold, folding each filtered
         dimension's predicate into the probe on the CUDA kernel.
         ``fusion="mega"`` routes a jspim query through one ``fused_query``
-        launch instead (the probe cache is not consulted).
+        launch instead (the probe cache is not consulted); ``"auto"``
+        takes the composed path, as the reference's ``run`` does.
         """
         spec = SSB_QUERIES[name]
         use_cache = self.policy.use_cache if use_cache is None else use_cache
@@ -420,6 +443,14 @@ class _QueryRunner:
                 probes[d] = self._join(d, dmask)
         return _filter_aggregate(spec, fact_cols, dim_cols, probes)
 
+    def _plan_fusion(self, n_queries: int) -> str:
+        """``plan_query``'s shape for ``run_all`` on the probe cache, priced
+        on this image's device.  The suite's tails are plain PyTorch
+        whatever the probe kernel, so it prices ``kernel="torch"`` (the
+        reference's ``"xla"``)."""
+        return plan_query(self.tables["lineorder"].n_rows, n_queries,
+                          backend=self.device.type, kernel="torch").fusion
+
     def run_all(self, names=None, *, use_cache: bool | None = None,
                 fusion: str | None = None
                 ) -> dict[str, tuple[torch.Tensor, torch.Tensor]]:
@@ -428,12 +459,16 @@ class _QueryRunner:
         ``fusion="composed"`` runs the queries one by one through ``run``;
         ``"mega"`` probes every joined dimension once up front (through the
         cache when ``use_cache``) and runs all query tails on the shared
-        probes, as the JAX package's one-dispatch suite does.
+        probes, as the JAX package's one-dispatch suite does; ``"auto"``
+        asks ``plan_query`` on the cache and takes ``"composed"`` cold.
         """
         names = list(names) if names is not None else sorted(SSB_QUERIES)
         use_cache = self.policy.use_cache if use_cache is None else use_cache
         fusion = self.policy.fusion if fusion is None else fusion
         check_value("fusion", fusion)
+        if fusion == "auto":
+            fusion = self._plan_fusion(len(names)) if use_cache \
+                else "composed"
         if fusion == "composed":
             return {n: self.run(n, use_cache=use_cache, fusion="composed")
                     for n in names}
@@ -449,11 +484,17 @@ def _mutates(fn):
     """Mutation-method guard: the engine's reentrant lock, so a snapshot
     (a serving tier's refresh) or a background compaction's publish never
     sees half a mutation.  Reentrant because mutations compose
-    (``append_rows`` drives ``ingest``, which may drive ``compact``)."""
+    (``append_rows`` drives ``ingest``, which may drive ``compact``).  A
+    mutation that raises leaves no staged event behind: a later publish
+    would deliver a batch the engine never applied."""
     @functools.wraps(fn)
     def wrapper(self, *a, **k):
         with self._mu:
-            return fn(self, *a, **k)
+            try:
+                return fn(self, *a, **k)
+            except BaseException:
+                self._pending_events.clear()
+                raise
     return wrapper
 
 
@@ -461,7 +502,7 @@ class SSBEngine(_QueryRunner):
     """Executes SSB queries with joins delegated to the selected engine.
 
     ``policy`` (an :class:`ExecutionPolicy`, default: jspim mode on the
-    CUDA kernels, gathered schedule, composed fusion) holds every knob.
+    CUDA kernels, ``schedule="auto"``, ``fusion="auto"``) holds every knob.
     The positional ``mode`` / ``probe_impl`` / ``schedule`` arguments are
     the legacy spellings, resolved into the policy (``resolve_policy``;
     ``probe_impl`` is ``"torch"`` or ``"cuda"``); one that disagrees with
@@ -472,10 +513,7 @@ class SSBEngine(_QueryRunner):
     package's over) instead of building them; their ``fact_skew`` feeds
     the planner.  The engine takes its own copy of their table planes,
     which its compactions write in place, so engines built on one
-    ``indexes`` mapping never see each other's compactions.  A jspim
-    engine on the card refuses ``schedule="auto"`` with
-    ``NotImplementedError`` before it builds anything (no cost entry for
-    the card until the planner slice).
+    ``indexes`` mapping never see each other's compactions.
     """
 
     def __init__(self, tables: dict[str, Table], mode: str | None = None,
@@ -486,12 +524,6 @@ class SSBEngine(_QueryRunner):
                                      probe_impl=probe_impl,
                                      schedule=schedule)
         self.device = resolve_device(device)
-        if self.mode == "jspim" and self.schedule == "auto" and \
-                self.device.type == "cuda":
-            raise NotImplementedError(
-                'schedule="auto" is not priced on a CUDA card yet: it '
-                "arrives with the planner slice (ROADMAP Queue 1 item 5); "
-                "force a schedule")
         for name, t in tables.items():
             if t.device != self.device:
                 raise ValueError(f"table {name!r} lives on {t.device}, the "
@@ -564,6 +596,13 @@ class SSBEngine(_QueryRunner):
         self._invalidations = 0
         self._ingest_batches = 0
         self._compactions = 0
+        # mutation-hook fan-out: observers (the IVM suites) see each
+        # validated batch, staged before the state changes and delivered
+        # once the epoch publishes; ``_view_suites`` is what ``snapshot()``
+        # asks for maintained answers
+        self._mutation_hooks: list[Callable] = []
+        self._pending_events: list[tuple] = []
+        self._view_suites: list = []
 
     # -- skew-adaptive probe planning (§3.3) -------------------------------
     def _plan_dim(self, dim: str) -> None:
@@ -720,6 +759,62 @@ class SSBEngine(_QueryRunner):
                 "pin_copies": self._pin_copies,
                 "fact_gen": self._fact_gen}
 
+    # -- mutation hooks ------------------------------------------------------
+    def _stage_event(self, kind: str, meta: dict | None = None,
+                     arrays: dict | None = None) -> None:
+        """Stage a validated batch for the hooks (after validation, before
+        any state changes; ``_notify_hooks`` delivers it once the epoch
+        publishes, so observers only see batches the engine applied)."""
+        if self._mutation_hooks:
+            self._pending_events.append(
+                (kind, dict(meta or {}), dict(arrays or {})))
+
+    def _notify_hooks(self) -> None:
+        """Deliver staged batches to the hooks, in mutation order, under
+        the engine lock.  Nested mutations (an auto-compaction inside
+        ``ingest``, ``ingest`` inside ``append_rows``) stage several
+        events that all drain at the outermost publish, stamped with the
+        final epoch: the epoch their combined effect is visible at."""
+        if not self._pending_events:
+            return
+        pending, self._pending_events = self._pending_events, []
+        for kind, meta, arrays in pending:
+            ev = MutationEvent(kind=kind, meta=meta, arrays=arrays,
+                               epoch=self._epoch,
+                               fact_epoch=self._fact_epoch)
+            for hook in list(self._mutation_hooks):
+                hook(ev)
+
+    def add_mutation_hook(self, fn: Callable) -> None:
+        """Subscribe ``fn(event: MutationEvent)`` to published mutations.
+        Hooks run under the engine lock; keep them cheap and never call
+        back into the engine's mutation methods from one."""
+        with self._mu:
+            self._mutation_hooks.append(fn)
+
+    def remove_mutation_hook(self, fn: Callable) -> None:
+        """Unsubscribe a hook added with ``add_mutation_hook``."""
+        with self._mu:
+            self._mutation_hooks.remove(fn)
+            if not self._mutation_hooks:
+                self._pending_events.clear()
+
+    def register_view_suite(self, suite) -> None:
+        """Attach a maintained-view suite (``repro_torch.ivm``): its hook
+        subscribes to mutations, and ``snapshot()`` freezes its answers
+        whenever it is fresh at the frozen epoch."""
+        with self._mu:
+            self._view_suites.append(suite)
+            self._mutation_hooks.append(suite._on_event)
+
+    def unregister_view_suite(self, suite) -> None:
+        """Detach a suite registered with ``register_view_suite``."""
+        with self._mu:
+            self._view_suites.remove(suite)
+            self._mutation_hooks.remove(suite._on_event)
+            if not self._mutation_hooks:
+                self._pending_events.clear()
+
     # -- §3.2.3 update commands (invalidate the affected dim's probes) -----
     def _replace_table(self, dim: str, table) -> None:
         self.indexes[dim] = dataclasses.replace(self.indexes[dim],
@@ -729,6 +824,10 @@ class SSBEngine(_QueryRunner):
         self._index_gens[dim] = self._index_gens.get(dim, 0) + 1
         self._epoch += 1
         self.invalidate_probe_cache(dim)
+        # a raw cell write cannot be maintained incrementally: observers
+        # invalidate on this kind
+        self._stage_event("raw_update", {"dim": dim})
+        self._notify_hooks()
 
     @_mutates
     def entry_update(self, dim: str, bucket, slot, key, value_word) -> None:
@@ -758,25 +857,20 @@ class SSBEngine(_QueryRunner):
             self.indexes[dim].table, bucket_ids, new_keys, new_values))
 
     # -- streaming ingest: delta buffer + compaction ------------------------
-    def _check_plannable(self) -> None:
-        """Raise ``NotImplementedError`` where compaction cannot be priced
-        (a CUDA engine, until the planner slice)."""
-        costmodel.host_costs(self.device.type)
-
     @_mutates
     def ingest(self, dim: str, keys, payloads=None, *, op: str = "upsert",
-               auto_compact: bool = True) -> CompactionPlan | None:
+               auto_compact: bool = True,
+               _event: bool = True) -> CompactionPlan:
         """Absorb a batch of index ops into ``dim``'s delta buffer.
 
         ``keys`` are raw dimension keys; ``op`` is "insert" / "upsert"
         (``payloads`` = dimension-row indices) or "delete" (tombstones).
         Drops the dimension's cached probes, then, when ``auto_compact``
         and the planner says so, folds the delta into the main table.
-        Returns the planner's decision, or ``None`` on a CUDA engine with
-        ``auto_compact=False`` (compaction is not priced on the card until
-        the planner slice; ``auto_compact=True`` raises there before any
-        state changes).  Batches are validated here and rejected with a
-        ``ValueError`` naming the argument.
+        Returns the planner's decision either way.  Batches are validated
+        here and rejected with a ``ValueError`` naming the argument.
+        ``_event`` is internal: ``append_rows`` stages one event covering
+        its own ingest.
         """
         if self.mode != "jspim":
             raise ValueError("ingest requires jspim mode (no index to "
@@ -799,11 +893,13 @@ class SSBEngine(_QueryRunner):
                                  "(the new dimension-row indices)")
             payloads = _check_batch_col("payloads", payloads,
                                         expect_len=keys.shape[0])
-        priced = auto_compact or self.device.type == "cpu"
-        if auto_compact:
-            self._check_plannable()
         if keys.shape[0] == 0:  # zero ops change no state
-            return self.compaction_plan(dim) if priced else None
+            return self.compaction_plan(dim)
+        if _event:
+            arrays = {"keys": keys}
+            if payloads is not None:
+                arrays["payloads"] = payloads
+            self._stage_event("ingest", {"dim": dim, "op": op}, arrays)
         before = self.indexes[dim].delta
         self.indexes[dim] = ingest_index(self.indexes[dim], keys, payloads,
                                          op=op)
@@ -819,11 +915,11 @@ class SSBEngine(_QueryRunner):
             # the live overlay (it is schedule-independent, so the pick
             # itself cannot change)
             self._plan_dim(dim)
-        if not priced:
-            return None
         plan = self.compaction_plan(dim)
         if auto_compact and plan.compact:
             self.compact(dim)
+        if _event:
+            self._notify_hooks()
         return plan
 
     @_mutates
@@ -862,17 +958,18 @@ class SSBEngine(_QueryRunner):
                 raise ValueError(f"rows[{DIM_PK[dim]!r}]: EMPTY_KEY is "
                                  "reserved as the hash slot sentinel and "
                                  "cannot be a dimension primary key")
-            if auto_compact:
-                self._check_plannable()
+        self._stage_event("append_rows", {"dim": dim}, cols_np)
         n0 = t.n_rows
         self.tables[dim] = t.append(cols_np)
         if self.mode == "jspim":
             self.ingest(dim, cols_np[DIM_PK[dim]],
                         np.arange(n0, n0 + n_new, dtype=np.int32),
-                        op="insert", auto_compact=auto_compact)
+                        op="insert", auto_compact=auto_compact,
+                        _event=False)
         else:
             self._epoch += 1
             self.invalidate_probe_cache(dim)
+        self._notify_hooks()
 
     # -- fact-side streaming append: probe-cache tail extension ------------
     @_mutates
@@ -885,14 +982,11 @@ class SSBEngine(_QueryRunner):
         (``Table.append_tail``), FK columns padded with ``EMPTY_KEY`` so
         that padding never joins.  Each cached dimension probe is then
         *extended*: the padded tail alone is probed under the dimension's
-        plan (delta overlay included) and spliced in.  On a CPU engine
-        ``plan_fact_append`` prices that against a cold re-probe of the
-        grown stream, and a dimension whose extension loses is invalidated
-        instead.  On a CUDA engine nothing is priced (no cost entry until
-        the planner slice): every cached dimension is extended, the
-        decision the CPU planner makes whenever the batch is small next to
-        the stream.  ``extend_cache=False`` invalidates every cached
-        dimension on every device.  A zero-row append is a strict no-op.
+        plan (delta overlay included) and spliced in.  ``plan_fact_append``
+        prices that against a cold re-probe of the grown stream, on the
+        engine's device, and a dimension whose extension loses is
+        invalidated instead.  ``extend_cache=False`` invalidates every
+        cached dimension.  A zero-row append is a strict no-op.
 
         The first append copies the fact columns into fresh capacity
         buffers, so tables shared with another engine or a caller never
@@ -922,6 +1016,7 @@ class SSBEngine(_QueryRunner):
         if n_new == 0:  # strict no-op: nothing moved, nothing invalidates
             return {"appended": 0, "epoch": self._fact_epoch, "dims": {},
                     "capacity_grew": False, "skew_replanned": []}
+        self._stage_event("append_fact_rows", {}, new_cols)
         n0 = fact.n_rows
         pad_values = {FACT_FK[d]: _ht.EMPTY_KEY for d in FACT_FK}
         # one bucket for both write windows (table tail and cache splice)
@@ -947,17 +1042,14 @@ class SSBEngine(_QueryRunner):
         if self.mode != "jspim":  # no index: probes must rerun from cold
             self.invalidate_probe_cache()
             report["skew_replanned"] = []
+            self._notify_hooks()
             return report
         for dim in sorted(self._probe_cache):
-            if self.device.type == "cuda":
-                extend, reason = True, "extended"
-            else:
-                ap = self._fact_append_plan(dim, bp, n0)
-                extend, reason = ap.extend, ap.reason
-            if not (extend_cache and extend):
+            ap = self._fact_append_plan(dim, bp, n0)
+            if not (extend_cache and ap.extend):
                 self.invalidate_probe_cache(dim)
                 self._tail_reprobes += 1
-                report["dims"][dim] = reason if extend_cache \
+                report["dims"][dim] = ap.reason if extend_cache \
                     else "invalidated"
                 continue
             found, row = self._probe_cache[dim]
@@ -988,14 +1080,12 @@ class SSBEngine(_QueryRunner):
             self._tail_extensions += 1
             report["dims"][dim] = "extended"
         report["skew_replanned"] = self._maybe_replan_fact_skew()
+        self._notify_hooks()
         return report
 
     def _fact_append_plan(self, dim: str, n_tail: int,
                           n_cached: int) -> FactAppendPlan:
-        """The planner's extend-or-reprobe decision for one cached dim.
-        Raises ``NotImplementedError`` on a CUDA engine until the planner
-        slice."""
-        self._check_plannable()
+        """The planner's extend-or-reprobe decision for one cached dim."""
         idx = self.indexes[dim]
         st = idx.stats
         sk = st.fact_skew if st is not None else None
@@ -1077,9 +1167,7 @@ class SSBEngine(_QueryRunner):
     def compaction_plan(self, dim: str) -> CompactionPlan:
         """The planner's compact-or-defer decision for ``dim`` right now,
         priced in the flavor ``compact`` would take (``swap`` while a live
-        snapshot pins the planes).  Raises ``NotImplementedError`` on a
-        CUDA engine until the planner slice."""
-        self._check_plannable()
+        snapshot pins the planes)."""
         idx = self.indexes[dim]
         st = idx.stats
         ds = delta_stats(idx.delta) if idx.delta is not None else None
@@ -1113,11 +1201,14 @@ class SSBEngine(_QueryRunner):
             if idx.delta is not None:
                 self.indexes[dim] = dataclasses.replace(idx, delta=None)
             return
+        # staged after the empty check: an empty compact publishes nothing
+        self._stage_event("compact", {"dim": dim})
         pinned = self._index_pinned(dim)
         if pinned:
             self._pin_copies += 1
         self.indexes[dim] = compact_index(idx, donate=not pinned)
         self._publish_compaction(dim)
+        self._notify_hooks()
 
     def _publish_compaction(self, dim: str) -> None:
         # either flavor leaves a generation no snapshot pins: the swap
@@ -1160,8 +1251,10 @@ class SSBEngine(_QueryRunner):
         with self._mu:
             if self.indexes[dim] is not source:
                 return False
+            self._stage_event("compact", {"dim": dim})
             self.indexes[dim] = merged
             self._publish_compaction(dim)
+            self._notify_hooks()
             return True
 
     def ingest_info(self) -> dict:

@@ -22,6 +22,10 @@ while the snapshot keeps answering at its epoch:
 * **The same code path.**  A snapshot runs queries through the engine's
   ``_QueryRunner`` methods, so an old epoch is answered exactly as the
   head would have answered it.
+* **Maintained answers.**  When a maintained-view suite registered on the
+  engine (``repro_torch.ivm.MaintainedSuite``) is fresh at the frozen
+  epoch, its 13 answers are copied into ``maintained`` (host ints and
+  arrays): the serving tier answers canonical queries from them.
 """
 from __future__ import annotations
 
@@ -46,6 +50,7 @@ class EpochSnapshot(_QueryRunner):
         self.epoch = engine.epoch
         self.fact_epoch = engine.fact_epoch
         self.policy = engine.policy  # frozen dataclass: sharing it freezes it
+        self.device = engine.device
         # the image: shallow copies of the engine's dicts.  Their values
         # (Tables, DimIndexes, plans, probe tuples) are never written once
         # published, except where a pin below forbids it.  The fact table
@@ -68,6 +73,13 @@ class EpochSnapshot(_QueryRunner):
                                 for d in self._probe_cache}
         self._pin_index_gens = {d: engine._index_gens.get(d, 0)
                                 for d in self.indexes}
+        # a suite fresh at this epoch answers exactly as this image does:
+        # freeze its answers; a stale or invalidated one contributes none
+        self.maintained = None
+        for suite in engine._view_suites:
+            if suite.fresh_at(engine.epoch):
+                self.maintained = suite.results()
+                break
         self._released = False
 
     # -- lifecycle ---------------------------------------------------------
@@ -94,6 +106,7 @@ class EpochSnapshot(_QueryRunner):
         self.plans = {}
         self._hot_codes = {}
         self._probe_cache = {}
+        self.maintained = None
 
     def epoch_lag(self) -> int:
         """How many epochs the engine has advanced past this image (0: the

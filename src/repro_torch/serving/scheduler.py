@@ -1,9 +1,7 @@
 """The resilient serving tier: admission → batch → execute → degrade.
 
-PyTorch port of ``repro.serving.scheduler`` without the maintained-view
-fast path (it waits for the incremental-view-maintenance slice).  One
-:class:`QueryScheduler` fronts one engine.  Requests pass four gates
-(DESIGN.md §11):
+PyTorch port of ``repro.serving.scheduler``.  One :class:`QueryScheduler`
+fronts one engine.  Requests pass four gates (DESIGN.md §11):
 
 * **admission** — a bounded queue; overflow is an *explicit*
   ``rejected`` response carrying ``retry_after_s`` estimated from the
@@ -12,6 +10,10 @@ fast path (it waits for the incremental-view-maintenance slice).  One
   batched dispatch; ``core.planner.plan_batch`` prices batch width
   against the tightest deadline in the group, halving until the modeled
   dispatch fits the slack.
+* **maintained views** — a canonical request (``PARAM_QUERIES[name]
+  .defaults``) is answered from the pinned snapshot's frozen maintained
+  answers when a ``repro_torch.ivm.MaintainedSuite`` was fresh at its
+  epoch (``ServeConfig.serve_maintained``); everything else dispatches.
 * **execution** — every dispatch runs inside one fault-isolated
   :class:`~repro_torch.serving.workers.Worker` against a pinned
   :class:`~repro_torch.engine.snapshot.EpochSnapshot`.  A crash kills only
@@ -29,10 +31,10 @@ wrong** — every ``ok`` response is bit-identical to the single-threaded
 oracle at the epoch the response reports (chaos-tested in
 ``tests/test_torch_serving_chaos.py``).
 
-Pricing: the JAX package's scheduler prices every device with the cost
-model's CPU entry.  The port has no card entry yet (ROADMAP Queue 1 item
-5), so both pricing sites pass ``backend="cpu"`` explicitly: the same
-numbers as the reference, and no call reaches the card's missing entry.
+Pricing: both pricing sites (``submit``'s ``retry_after_s`` and the batch
+width) price on the pinned snapshot's device type, the cost model's
+``"cpu"`` or ``"cuda"`` entry.  On the CPU the plans equal the JAX
+package's, which prices every device with its CPU entry.
 """
 from __future__ import annotations
 
@@ -68,6 +70,8 @@ class ServeConfig:
     backoff_s: float = 0.005     # linear: attempt * backoff_s
     breaker_threshold: int = 3   # fused crashes in a row -> open
     breaker_cooldown: int = 8    # composed serves before half-open
+    serve_maintained: bool = True  # answer canonical queries from fresh
+    #                                maintained views
     default_deadline_s: float | None = None
     clock: Callable[[], float] = time.monotonic
 
@@ -214,7 +218,7 @@ class QueryScheduler:
                       "timed_out": 0, "failed": 0, "retries": 0,
                       "batches": 0, "composed_batches": 0,
                       "refresh_failures": 0, "bg_compactions": 0,
-                      "bg_compact_conflicts": 0}
+                      "bg_compact_conflicts": 0, "maintained_served": 0}
 
     # -- admission ---------------------------------------------------------
     def submit(self, name: str, params=None, *,
@@ -243,11 +247,10 @@ class QueryScheduler:
                 self.stats["rejected"] += 1
                 return ticket
             if len(self._queue) >= self.config.max_queue:
-                n_rows = self._pin.snap.tables["lineorder"].n_rows
-                # priced on the CPU entry on every device, as the JAX
-                # package does, until the card's entry (Queue 1 item 5)
+                snap = self._pin.snap
                 drain = costmodel.batch_serve_seconds(
-                    self.config.max_batch, n_rows, backend="cpu") * (
+                    self.config.max_batch, snap.tables["lineorder"].n_rows,
+                    backend=snap.device.type) * (
                     1 + len(self._queue) / self.config.max_batch)
                 # clamp: never negative, and never shorter than the
                 # tightest admitted deadline slack — a client retrying
@@ -322,18 +325,58 @@ class QueryScheduler:
             same = [it for it in self._queue if it.name == name]
             slacks = [it.deadline - now for it in same
                       if it.deadline is not None]
-            # priced on the CPU entry on every device, as the JAX package
-            # does, until the card's entry (Queue 1 item 5)
+            snap = self._pin.snap
             plan = plan_batch(
                 queue_depth=len(same),
                 slack_s=min(slacks) if slacks else None,
-                n_rows=self._pin.snap.tables["lineorder"].n_rows,
-                max_batch=cfg.max_batch, backend="cpu")
+                n_rows=snap.tables["lineorder"].n_rows,
+                max_batch=cfg.max_batch, backend=snap.device.type)
             take = same[:plan.size]
             taken = set(map(id, take))
             self._queue = [it for it in self._queue
                            if id(it) not in taken]
             return take
+
+    # -- maintained-view fast path -------------------------------------------
+    def _serve_maintained(self, live: list[_Item]) -> list[_Item]:
+        """Answer the requests the pinned snapshot's maintained views cover;
+        return the rest.
+
+        A maintained answer exists only for the canonical parameter point
+        (the constants the 13 views are defined over) and only when the
+        suite was fresh at the snapshot's epoch, where it equals what the
+        dispatch would compute against the same snapshot.  An invalidated
+        or stale suite contributes nothing: its requests dispatch.
+        """
+        if not self.config.serve_maintained:
+            return live
+        with self._mu:
+            pin = self._pin.acquire()
+        try:
+            m = pin.snap.maintained
+            if not m:
+                return live
+            epoch, lag = pin.snap.epoch, self._lag(pin.snap)
+            rest: list[_Item] = []
+            served = 0
+            for it in live:
+                if it.name in m and \
+                        it.params == PARAM_QUERIES[it.name].defaults:
+                    total, groups = m[it.name]
+                    it.ticket._resolve(Response(
+                        OK, it.name, it.params, total=int(total),
+                        groups=np.array(groups, copy=True), epoch=epoch,
+                        epoch_lag=lag, stale=lag > 0))
+                    served += 1
+                else:
+                    rest.append(it)
+            if served:
+                with self._mu:
+                    self.stats["maintained_served"] += served
+                    self.stats["completed"] += served
+            return rest
+        finally:
+            pin.release()
 
     # -- execution ---------------------------------------------------------
     def _execute(self, batch: list[_Item]) -> None:
@@ -350,6 +393,9 @@ class QueryScheduler:
                 self.stats["timed_out"] += 1
             else:
                 live.append(it)
+        if not live:
+            return
+        live = self._serve_maintained(live)
         if not live:
             return
         with self._mu:

@@ -448,31 +448,58 @@ def test_pricing_matches_jax_on_the_cpu():
                     sched, n_tail=max(1, n_tail), **kw, **geom) == \
                     jcostmodel.tail_extend_seconds(
                         sched, n_tail=max(1, n_tail), **kw, **geom)
-    with pytest.raises(NotImplementedError, match="planner slice"):
+    # the card's entry prices it; a backend without one raises
+    for sched in ("gathered", "stream", "deduped", "hot_cold"):
+        plan = planner.plan_probe(stats, bucket_width=8, force=sched,
+                                  code_space=5000, backend="cuda")
+        ap = planner.plan_fact_append(plan, n_tail=1 << 20,
+                                      n_cached=60_000_000, distinct=5000,
+                                      bucket_width=8, backend="cuda")
+        assert ap.extend and 0 < ap.est_tail_s < ap.est_reprobe_s, sched
+    with pytest.raises(NotImplementedError, match="tpu"):
         planner.plan_fact_append(plan, n_tail=256, n_cached=1000,
                                  distinct=10, bucket_width=8,
-                                 backend="cuda")
+                                 backend="tpu")
 
 
 def test_a_cuda_engine_extends_unpriced(monkeypatch):
-    """On the card appends are not priced (no cost entry): every cached
-    dimension is extended, ``_fact_append_plan`` raises, and
-    ``extend_cache=False`` invalidates."""
+    """Priced now: an engine on the card asks ``_fact_append_plan`` (the
+    card's entry) for every cached dimension and follows it (at this tiny
+    size the card's fixed launch costs can favour a reprobe; at SF10 it
+    extends, ``test_torch_planner.py``), and ``extend_cache=False``
+    invalidates."""
     tables = generate_ssb(SF, device="cpu")
     engine = SSBEngine(dict(tables), device="cpu")
     engine.warm_cache(("part", "date"))
     monkeypatch.setattr(engine, "device", torch.device("cuda"))
+    asked = []
+    real = engine._fact_append_plan
+
+    def spy(dim, n_tail, n_cached):
+        ap = real(dim, n_tail, n_cached)
+        asked.append((dim, ap))
+        return ap
+    monkeypatch.setattr(engine, "_fact_append_plan", spy)
     rng = np.random.default_rng(2)
     rep = engine.append_fact_rows(_batch(engine.tables, rng, 50))
-    assert rep["dims"] == {"date": "extended", "part": "extended"}
-    with pytest.raises(NotImplementedError, match="planner slice"):
-        engine._fact_append_plan("part", 256, 1000)
+    assert [d for d, _ in asked] == ["date", "part"]
+    assert rep["dims"] == {d: "extended" if ap.extend else ap.reason
+                           for d, ap in asked}
+    extended = sum(ap.extend for _, ap in asked)
+    engine.warm_cache(("part", "date"))
+    idx = engine.indexes["part"]
+    want = planner.plan_fact_append(
+        engine.plans["part"], n_tail=256, n_cached=1000,
+        distinct=idx.stats.fact_skew.distinct, bucket_width=8,
+        backend="cuda")
+    assert real("part", 256, 1000) == want
     rep = engine.append_fact_rows(_batch(engine.tables, rng, 50),
                                   extend_cache=False)
     assert rep["dims"] == {"date": "invalidated", "part": "invalidated"}
     assert engine.cache_info()["cached_dims"] == []
     info = engine.fact_append_info()
-    assert (info["tail_extensions"], info["tail_reprobes"]) == (2, 2)
+    assert (info["tail_extensions"], info["tail_reprobes"]) == \
+        (extended, 4 - extended)
     monkeypatch.undo()
     oracle = SSBEngine(dict(engine.tables,
                             lineorder=engine.tables["lineorder"].trimmed()),

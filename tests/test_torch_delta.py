@@ -371,17 +371,30 @@ def test_plan_compaction_matches_jax(kw):
 
 
 def test_compaction_pricing_on_cuda_is_gated():
+    """The card's entry prices compaction (its overlay, merge and rebuild
+    costs); a backend with no entry raises instead of pricing as a CPU."""
     kw = dict(delta_entries=10, delta_slots=1024, fill_frac=0.01,
               n_build=1000, n_dict=1000, bucket_width=8,
               expected_probes=1000)
-    with pytest.raises(NotImplementedError, match="planner slice"):
-        tplanner.plan_compaction(**kw, backend="cuda")
+    plan = tplanner.plan_compaction(**kw, backend="cuda")
+    c = costmodel.HOST_COSTS["cuda"]
+    assert plan.est_merge_s == costmodel.merge_seconds(10, 1000, 8,
+                                                       backend="cuda")
+    assert plan.est_overlay_s == costmodel.delta_overlay_seconds(
+        1000, 1024, bucket_width=8, backend="cuda")
+    assert plan.compact == (plan.est_overlay_s > plan.est_merge_s)
+    assert costmodel.merge_seconds(10, 1000, 8, backend="cuda",
+                                   swap=True) > plan.est_merge_s
+    assert costmodel.rebuild_seconds(10, 8, backend="cuda") > 10 * c.op_ns \
+        * 1e-9
+    with pytest.raises(NotImplementedError, match="tpu"):
+        tplanner.plan_compaction(**kw, backend="tpu")
     for fn, args in ((costmodel.delta_overlay_seconds, (10, 10)),
                      (costmodel.merge_seconds, (10, 10, 8)),
                      (costmodel.rebuild_seconds, (10, 8))):
-        with pytest.raises(NotImplementedError, match="planner slice"):
-            fn(*args, backend="cuda")
-    assert set(costmodel.HOST_COSTS) == {"cpu"}
+        with pytest.raises(NotImplementedError, match="tpu"):
+            fn(*args, backend="tpu")
+    assert set(costmodel.HOST_COSTS) == {"cpu", "cuda"}
 
 
 # ---------------------------------------------------------------------------

@@ -174,7 +174,7 @@ def test_lookup_matches_jax(tables, reference, impl, dim):
 
 def test_probe_cache(tables):
     engine = SSBEngine(tables, device="cpu")
-    engine.run_all()
+    engine.run_all(fusion="composed")
     info = engine.cache_info()
     assert info["misses"] == 4 and info["hits"] > 0
     assert info["cached_dims"] == ["customer", "date", "part", "supplier"]
@@ -189,26 +189,48 @@ def test_probe_cache(tables):
 
 
 @pytest.mark.parametrize("field", ["schedule", "fusion"])
-def test_auto_is_gated_until_the_planner_slice(tables, monkeypatch, field):
-    """fusion="auto" is refused everywhere; schedule="auto" plans on a CPU
-    engine and is refused by an engine on the card."""
-    if field == "fusion":
-        with pytest.raises(NotImplementedError, match="planner"):
-            ExecutionPolicy(fusion="auto")
-        engine = SSBEngine(tables, device="cpu")
-        with pytest.raises(NotImplementedError, match="planner"):
-            engine.run("Q1.1", fusion="auto")
-        with pytest.raises(NotImplementedError, match="planner"):
-            engine.run_all(fusion="auto")
-        return
-    policy = ExecutionPolicy(schedule="auto")
-    engine = SSBEngine(tables, policy=policy, device="cpu")
-    assert {p.schedule for p in engine.plans.values()} == {"gathered"}
+def test_auto_is_gated_until_the_planner_slice(tables, reference,
+                                               monkeypatch, field):
+    """The gate is gone: "auto" is the default and is priced on the
+    engine's device.  fusion="auto" runs the composed path for ``run`` and
+    ``plan_query``'s pick for ``run_all`` on the cache (on "cpu" the
+    reference's "mega"); schedule="auto" keeps gathered for the CUDA
+    kernels on "cpu" and on "cuda", with every schedule priced."""
+    from repro_torch.core import planner
     from repro_torch.engine import queries
-    monkeypatch.setattr(queries, "resolve_device",
-                        lambda _: torch.device("cuda", 0))
-    with pytest.raises(NotImplementedError, match="planner"):
-        SSBEngine(tables, policy=policy)
+    assert (ExecutionPolicy().schedule, ExecutionPolicy().fusion) == \
+        ("auto", "auto")
+    engine = SSBEngine(tables, device="cpu")
+    if field == "fusion":
+        seen = []
+        real = queries.plan_query
+
+        def spy(*a, **k):
+            seen.append(real(*a, **k))
+            return seen[-1]
+        monkeypatch.setattr(queries, "plan_query", spy)
+        _assert_answers({q: engine.run(q, fusion="auto")
+                         for q in SSB_QUERIES}, reference)
+        assert not seen  # a single query never asks the planner
+        _assert_answers(engine.run_all(fusion="auto"), reference)
+        want = planner.plan_query(engine.tables["lineorder"].n_rows, 13,
+                                  backend="cpu", kernel="torch")
+        assert seen == [want] and want.fusion == "mega"
+        _assert_answers(engine.run_all(fusion="auto", use_cache=False),
+                        reference)
+        assert len(seen) == 1  # cold suites take the composed path
+        return
+    assert {p.schedule for p in engine.plans.values()} == {"gathered"}
+    monkeypatch.setattr(engine, "device", torch.device("cuda"))
+    for dim in engine.indexes:
+        engine._plan_dim(dim)
+        st = engine.indexes[dim].stats
+        want = planner.plan_probe(
+            st.fact_skew, bucket_width=st.bucket_width, backend="cuda",
+            impl="cuda", code_space=int(engine.indexes[dim].dictionary.n),
+            hash_mode=engine.indexes[dim].table.hash_mode)
+        assert engine.plans[dim] == want
+        assert want.schedule == "gathered" and len(want.est_seconds) == 4
 
 
 @pytest.mark.parametrize("path", ["cached_composed", "cold_run", "mega_run"])
@@ -240,8 +262,9 @@ def test_stream_schedule_matches_jax(tables, reference, monkeypatch, kernel,
 def test_policy_defaults_and_validation():
     p = ExecutionPolicy()
     assert (p.mode, p.kernel, p.schedule, p.fusion, p.use_cache) == \
-        ("jspim", "cuda", "gathered", "composed", True)
-    for bad in ({"mode": "x"}, {"kernel": "pallas"}, {"kernel": "xla"}):
+        ("jspim", "cuda", "auto", "auto", True)
+    for bad in ({"mode": "x"}, {"kernel": "pallas"}, {"kernel": "xla"},
+                {"fusion": "fused"}, {"schedule": "interpret"}):
         with pytest.raises(ValueError):
             ExecutionPolicy(**bad)
 

@@ -345,25 +345,37 @@ def test_compaction_pricing_matches_jax_on_the_cpu(small_engines):
 
 def test_compaction_pricing_is_gated_on_a_cuda_engine(small_engines,
                                                       monkeypatch):
-    """On the card compaction is not priced until the planner slice: the
-    priced calls raise before any state changes, the others return None."""
-    _, engine = small_engines
+    """No longer gated: an engine on the card prices compaction on the
+    card's entry, ``ingest``/``append_rows(auto_compact=True)`` compact on
+    its decision, and the answers equal the JAX engine's after the same
+    ops and folds."""
+    from repro_torch.core import planner as tplanner
+    jax_engine, engine = small_engines
     monkeypatch.setattr(engine, "device", torch.device("cuda"))
     n0 = engine.tables["part"].n_rows
     rows = _new_rows(engine, "part", 3)
-    for call in (lambda: engine.ingest("part", [1, 2], [3, 4]),
-                 lambda: engine.append_rows("part", rows),
-                 lambda: engine.compaction_plan("part")):
-        with pytest.raises(NotImplementedError, match="planner slice"):
-            call()
-    assert engine.indexes["part"].delta is None
-    assert engine.tables["part"].n_rows == n0
-    assert engine.ingest("part", [1, 2], [3, 4], auto_compact=False) is None
-    assert engine.append_rows("part", rows, auto_compact=False) is None
+    from repro_torch.core.delta import delta_stats
+    plan = engine.ingest("part", [1, 2], [3, 4], auto_compact=False)
+    idx = engine.indexes["part"]
+    ds = delta_stats(idx.delta)
+    want = tplanner.plan_compaction(
+        delta_entries=ds.n_entries, delta_slots=ds.num_slots,
+        fill_frac=ds.fill_frac, worst_bucket_frac=ds.worst_bucket_frac,
+        n_build=idx.stats.n_build, n_dict=int(idx.dictionary.n),
+        bucket_width=8, expected_probes=engine.tables["lineorder"].n_rows,
+        backend="cuda")
+    assert plan == want == engine.compaction_plan("part")
+    jax_engine.ingest("part", [1, 2], [3, 4], auto_compact=False)
+    assert engine.append_rows("part", rows) is None
+    jax_engine.append_rows("part", rows, auto_compact=False)
     assert engine.tables["part"].n_rows == n0 + 3
-    assert engine.ingest_info()["deltas"]["part"]["n_entries"] == 5
-    engine.compact("part")
-    assert engine.indexes["part"].delta is None
+    folded = engine.indexes["part"].delta is None
+    assert folded == (engine.ingest_info()["compactions"] > 0)
+    if folded:
+        jax_engine.compact("part")
+    monkeypatch.undo()
+    _assert_same(_np(engine.run_all(fusion="composed")),
+                 _np(jax_engine.run_all(fusion="composed")), "cuda-priced")
 
 
 @pytest.mark.parametrize("bad", ["float_keys", "2d_keys", "ragged",

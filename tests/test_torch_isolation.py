@@ -39,16 +39,29 @@ class Block:
 sys.meta_path.insert(0, Block())
 import repro_torch, repro_torch.core, repro_torch.kernels, repro_torch.engine
 import repro_torch.durability, repro_torch.serving
+import repro_torch.ivm, repro_torch.configs
+from repro_torch.configs import SSB_PIM
+from repro_torch.core.costmodel import Workload, jspim_join_seconds
 from repro_torch.engine import SSBEngine, generate_ssb
+from repro_torch.engine.ssb import generate_fact_batch
+from repro_torch.ivm import MaintainedSuite
 from repro_torch.serving import QueryScheduler
+import numpy as np
+assert jspim_join_seconds(Workload(1000, 100, 1000), SSB_PIM) > 0
 engine = SSBEngine(generate_ssb(0.0001, device="cpu"), device="cpu")
 print(sorted(engine.run_all()))
+suite = MaintainedSuite.attach(engine)
+engine.append_fact_rows(generate_fact_batch(engine.tables, 8,
+                                            np.random.default_rng(0)))
+assert suite.fresh_at(engine.epoch)
 with engine.snapshot() as snap:
     assert sorted(snap.run_all()) == sorted(engine.run_all())
+    assert snap.maintained is not None
 sched = QueryScheduler(engine)
 ticket = sched.submit("Q2.1")
 sched.pump()
 assert ticket.response.ok
+assert sched.info()["maintained_served"] == 1
 sched.close()
 assert not any(m.split(".")[0] in ("jax", "jaxlib", "repro")
                for m in sys.modules)

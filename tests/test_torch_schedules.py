@@ -48,7 +48,6 @@ from repro_torch.engine import (SSB_QUERIES, SSBEngine, build_stats_from,
                                 dim_index_from_numpy, generate_ssb,
                                 generate_ssb_dims, join, random_mutation,
                                 tables_from_numpy)
-from repro_torch.engine import queries as tqueries
 from repro_torch.kernels.ops import probe_table
 
 SF = 0.002
@@ -126,32 +125,41 @@ def test_plan_probe_picks_every_schedule_somewhere():
 
 @pytest.mark.parametrize("code_space", [5_000, 2_000_000])
 def test_plan_probe_on_a_backend_without_costs(code_space):
-    """On "cuda" nothing is priced: force is required, est_seconds is (),
-    and a partial hot/cold plan replicates MAX_HOT_ENTRIES keys."""
+    """Only a backend the cost model has no entry for is left unpriced: it
+    raises, forced or not.  "cuda" is priced without ``force``: the CUDA
+    kernels keep gathered, every schedule carries its estimate, and a
+    forced hot/cold plan takes the reference's geometry at the grid point
+    the card's prices pick."""
     ts, js = _stats_pair(1.5, 3_000)
-    with pytest.raises(NotImplementedError, match="planner slice"):
-        tplanner.plan_probe(ts, bucket_width=8, backend="cuda",
-                            code_space=code_space)
+    for force in (None, "hot_cold"):
+        with pytest.raises(NotImplementedError, match="tpu"):
+            tplanner.plan_probe(ts, bucket_width=8, backend="tpu",
+                                code_space=code_space, force=force)
+    auto = tplanner.plan_probe(ts, bucket_width=8, backend="cuda",
+                               impl="cuda", code_space=code_space)
+    assert auto.schedule == "gathered"
+    assert sorted(dict(auto.est_seconds)) == ["deduped", "gathered",
+                                              "hot_cold", "stream"]
     kw = dict(bucket_width=8, code_space=code_space, force="hot_cold")
     got = tplanner.plan_probe(ts, backend="cuda", **kw)
     want = jplanner.plan_probe(js, backend="cpu", **kw)
-    assert got.est_seconds == ()
+    assert got.est_seconds == auto.est_seconds
     if code_space <= 65_536:  # full map: the reference's own geometry
-        _same_plan(got, dataclasses.replace(want, est_seconds=()))
+        _same_plan(got, dataclasses.replace(want,
+                                            est_seconds=got.est_seconds))
     else:
-        h, slots = jplanner.hot_geometry(js, jplanner.MAX_HOT_ENTRIES,
-                                         code_space)
-        assert (got.hot_entries, got.hot_slots, got.full_map) == \
-            (h, slots, False)
+        geoms = {jplanner.hot_geometry(js, h, code_space)
+                 for h in tskew.TOP_SHARE_GRID
+                 if h <= jplanner.MAX_HOT_ENTRIES}
+        assert (got.hot_entries, got.hot_slots) in geoms
+        assert not got.full_map
         assert got.cold_capacity == jplanner.cold_capacity_for(
-            js.n, js.coverage(h))
-        wide = dataclasses.replace(ts, distinct=2_000_000)
-        p = tplanner.plan_probe(wide, backend="cuda", **kw)
-        assert (p.hot_entries, p.hot_slots) == (32_768, 65_536)
+            js.n, js.coverage(got.hot_entries))
     for force in ("gathered", "stream", "deduped"):
         p = tplanner.plan_probe(ts, backend="cuda", bucket_width=8,
                                 force=force)
-        assert p == tplanner.SchedulePlan(schedule=force)
+        assert (p.schedule, p.hot_entries, p.cold_capacity) == (force, 0, 0)
+        assert len(p.est_seconds) == 4
 
 
 def test_schedule_costs_match_jax_and_gate_cuda():
@@ -164,9 +172,17 @@ def test_schedule_costs_match_jax_and_gate_cuda():
             kw = dict(kw, bucket_width=8, backend="cpu")
             assert tcost.probe_schedule_seconds(sched, **kw) == \
                 jcost.probe_schedule_seconds(sched, **kw)
-    with pytest.raises(NotImplementedError, match="planner slice"):
+    # the card's entry prices every schedule; its compiled stream costs
+    # what gathered does; an unknown backend raises
+    kw = dict(n_probes=6_000_000, distinct=2_000_000, bucket_width=8,
+              backend="cuda")
+    cuda = {sched: tcost.probe_schedule_seconds(sched, **kw)
+            for sched in ("gathered", "stream", "deduped", "hot_cold")}
+    assert all(v > 0 for v in cuda.values())
+    assert cuda["stream"] == cuda["gathered"]
+    with pytest.raises(NotImplementedError, match="tpu"):
         tcost.probe_schedule_seconds("gathered", n_probes=10, distinct=10,
-                                     bucket_width=8, backend="cuda")
+                                     bucket_width=8, backend="tpu")
 
 
 # ---------------------------------------------------------------------------
@@ -522,21 +538,35 @@ def test_engine_cold_paths_under_forced_schedules(schedule):
                              for q, (t, g) in path.items()}, want, kernel)
 
 
-def test_auto_schedule_is_refused_on_a_cuda_engine(monkeypatch):
-    """Before any state exists: the card has no cost entry yet."""
+@pytest.mark.parametrize("kernel", ["cuda", "torch"])
+def test_auto_schedule_is_refused_on_a_cuda_engine(monkeypatch, kernel):
+    """No longer refused: an engine on the card plans every dimension on
+    the card's cost entry (the CUDA kernels keep gathered; the torch
+    kernel takes the priced pick) and answers as before."""
     tables = generate_ssb(SF, device="cpu")
-    monkeypatch.setattr(tqueries, "resolve_device",
-                        lambda _: torch.device("cuda", 0))
-    built = []
-    monkeypatch.setattr(tqueries, "build_dim_index",
-                        lambda *a, **k: built.append(1))
-    with pytest.raises(NotImplementedError, match="planner slice"):
-        SSBEngine(tables, policy=ExecutionPolicy(schedule="auto"))
-    assert not built
-    # baseline mode plans nothing, so it does not refuse
-    with pytest.raises(ValueError, match="lives on"):
-        SSBEngine(tables, policy=ExecutionPolicy(mode="baseline",
-                                                 schedule="auto"))
+    e = SSBEngine(tables, policy=ExecutionPolicy(kernel=kernel),
+                  device="cpu")
+    want = _answers(e)
+    monkeypatch.setattr(e, "device", torch.device("cuda"))
+    for dim, ix in e.indexes.items():
+        e._plan_dim(dim)
+        st = ix.stats
+        plan = tplanner.plan_probe(
+            st.fact_skew, bucket_width=st.bucket_width, backend="cuda",
+            impl=kernel, code_space=int(ix.dictionary.n),
+            hash_mode=ix.table.hash_mode)
+        got = e.plans[dim]
+        assert got.schedule == plan.schedule
+        assert got.est_seconds == plan.est_seconds
+        if kernel == "cuda":
+            assert got.schedule == "gathered"
+    monkeypatch.undo()
+    e.invalidate_probe_cache()
+    _assert_answers(_answers(e), want, f"replanned on cuda ({kernel})")
+    # baseline mode plans nothing
+    b = SSBEngine(tables, policy=ExecutionPolicy(mode="baseline"),
+                  device="cpu")
+    assert b.plans == {}
 
 
 def test_adopted_jax_indexes_carry_their_skew():

@@ -12,7 +12,10 @@ and randomized evidence is ``test_torch_serving_chaos.py``).  Covered:
 * admission with ``retry_after_s`` equal to the JAX scheduler's, closing,
   deadlines at queue exit and at the batch boundary;
 * ``plan_batch`` and ``batch_serve_seconds`` equal to the JAX package's,
-  and the scheduler pricing on the ``"cpu"`` entry whatever the device;
+  and the scheduler pricing on the pinned snapshot's device type;
+* canonical requests answered from a fresh maintained-view suite (the
+  ``maintained_served`` count equal to the JAX scheduler's), and the
+  fallback when the suite is invalid or the path disabled;
 * a worker crash retried on a fresh worker, the retry budget, the circuit
   breaker's ladder, the worker pool;
 * a failed snapshot refresh served stale with its lag;
@@ -411,16 +414,28 @@ def test_batch_serve_seconds_matches_jax():
             jcostmodel.batch_serve_seconds(b, n)
     one = costmodel.batch_serve_seconds(1, 10_000)
     assert costmodel.batch_serve_seconds(8, 10_000) < 8 * one
-    with pytest.raises(NotImplementedError, match="planner slice"):
-        costmodel.batch_serve_seconds(1, 10, backend="cuda")
+    # the card's entry prices a dispatch; a backend without one raises
+    c = costmodel.HOST_COSTS["cuda"]
+    assert costmodel.batch_serve_seconds(8, 60_000_000, backend="cuda") == \
+        (8 * 60_000_000 * costmodel.SERVE_PASSES_PER_REQUEST * c.pass_ns
+         + costmodel.SERVE_OPS_PER_DISPATCH * c.op_ns) * 1e-9
+    p = planner.plan_batch(queue_depth=8, slack_s=None, n_rows=60_000_000,
+                           max_batch=16, backend="cuda")
+    assert (p.size, p.reason) == (8, "depth")
+    with pytest.raises(NotImplementedError, match="tpu"):
+        costmodel.batch_serve_seconds(1, 10, backend="tpu")
     with pytest.raises(NotImplementedError):
         planner.plan_batch(queue_depth=1, slack_s=None, n_rows=1,
-                           max_batch=1, backend="cuda")
+                           max_batch=1, backend="tpu")
 
 
-def test_scheduler_prices_on_the_cpu_entry(engine, monkeypatch):
-    """Both pricing sites pass ``backend="cpu"``, whatever the engine's
-    device: no call reaches the card's missing cost entry."""
+@pytest.mark.parametrize("device", ["cpu", "cuda"])
+def test_scheduler_prices_on_the_cpu_entry(tables, monkeypatch, device):
+    """Both pricing sites price on the pinned snapshot's device type: the
+    CPU entry for a CPU engine (the JAX package's numbers), the card's for
+    an engine on the card."""
+    engine = SSBEngine(dict(tables), device="cpu")
+    monkeypatch.setattr(engine, "device", torch.device(device))
     seen = []
     real_serve = costmodel.batch_serve_seconds
     real_plan = pscheduler.plan_batch
@@ -442,8 +457,8 @@ def test_scheduler_prices_on_the_cpu_entry(engine, monkeypatch):
         sched.pump()
     finally:
         sched.close()
-    assert ("serve", "cpu") in seen and ("plan", "cpu") in seen
-    assert {b for _, b in seen} == {"cpu"}
+    assert ("serve", device) in seen and ("plan", device) in seen
+    assert {b for _, b in seen} == {device}
 
 
 # ---------------------------------------------------------------------------
@@ -671,6 +686,117 @@ def test_background_compaction_restages_on_conflict(tables):
         assert sched.info()["bg_compactions"] == 0
     finally:
         sched.close()
+
+
+# ---------------------------------------------------------------------------
+# maintained views: canonical requests answered from a fresh suite
+# ---------------------------------------------------------------------------
+
+
+def _maintained_pair(tables, ops=None):
+    """A (port, JAX) engine pair on the same seed with a maintained suite
+    attached to each and ``ops(engine, package)`` applied to both."""
+    from repro.ivm import MaintainedSuite as JaxSuite
+    from repro_torch.ivm import MaintainedSuite
+
+    port = SSBEngine(dict(tables), device="cpu")
+    ref = JaxEngine(dict(jax_generate_ssb(sf=SF, seed=11)), mode="jspim")
+    suites = (MaintainedSuite.attach(port), JaxSuite.attach(ref))
+    if ops is not None:
+        ops(port, "port")
+        ops(ref, "jax")
+    return (port, ref), suites
+
+
+def _serve_both(engines, requests, config=None):
+    """Submit ``requests`` to a scheduler on each engine and pump; returns
+    each side's responses and ``info()``."""
+    out = []
+    for eng, sched_cls, cfg_cls in ((engines[0], QueryScheduler,
+                                     ServeConfig),
+                                    (engines[1], JaxScheduler,
+                                     JaxServeConfig)):
+        sched = sched_cls(eng, cfg_cls(**(config or {})))
+        try:
+            tickets = [sched.submit(q, p) for q, p in requests]
+            sched.pump()
+            out.append(([t.response for t in tickets], sched.info()))
+        finally:
+            sched.close()
+    return out
+
+
+def _same_responses(port, ref):
+    for r, j in zip(port, ref):
+        assert r.ok and j.ok, (r.status, j.status)
+        assert (r.total, r.epoch, r.epoch_lag, r.stale) == \
+            (j.total, j.epoch, j.epoch_lag, j.stale), r.name
+        np.testing.assert_array_equal(r.groups, np.asarray(j.groups))
+
+
+def test_maintained_views_serve_canonical_queries(tables, model):
+    (port, ref), suites = _maintained_pair(tables)
+    [(resp, info), (jresp, jinfo)] = _serve_both(
+        (port, ref), [("Q3.1", None), ("Q3.1", (2, 3, 1992, 1997))])
+    for r in resp:
+        _check(r, model)
+    _same_responses(resp, jresp)
+    # the canonical request came from the frozen maintained views, the
+    # custom-parameter one fell through to the batch dispatch
+    assert info["maintained_served"] == jinfo["maintained_served"] == 1
+    assert info["completed"] == jinfo["completed"] == 2
+    assert resp[0].epoch == port.epoch
+    assert suites[0].valid
+
+
+def test_maintained_serving_tracks_mutations(tables):
+    doomed = tables["customer"]["custkey"][:9].numpy()
+
+    def ops(eng, package):
+        eng.ingest("customer", doomed.copy(), op="delete",
+                   auto_compact=False)
+    (port, ref), _ = _maintained_pair(tables)
+    mirror = LogicalModel(port.tables)
+    engines = (port, ref)
+    out = []
+    for eng, sched_cls, cfg_cls, package in (
+            (port, QueryScheduler, ServeConfig, "port"),
+            (ref, JaxScheduler, JaxServeConfig, "jax")):
+        sched = sched_cls(eng, cfg_cls())   # pins the pre-delete epoch
+        try:
+            ops(eng, package)
+            t = sched.submit("Q3.1")
+            sched.pump()                    # refreshes to the new epoch
+            out.append((t.response, sched.info()))
+        finally:
+            sched.close()
+    mirror.delete_keys("customer", doomed)
+    (r, info), (j, jinfo) = out
+    _check(r, mirror)
+    _same_responses([r], [j])
+    assert info["maintained_served"] == jinfo["maintained_served"] == 1
+    assert r.epoch_lag == 0 and not r.stale and r.epoch == engines[0].epoch
+
+
+def test_maintained_serving_falls_back_when_invalid(tables, model):
+    def ops(eng, package):
+        eng.index_update("date", 0, 0)   # a raw §3.2.3 write invalidates
+    (port, ref), suites = _maintained_pair(tables, ops)
+    assert not suites[0].valid and not suites[1].valid
+    [(resp, info), (jresp, jinfo)] = _serve_both((port, ref),
+                                                 [("Q1.1", None)])
+    _check(resp[0], model)       # recompute fallback, never wrong
+    _same_responses(resp, jresp)
+    assert info["maintained_served"] == jinfo["maintained_served"] == 0
+
+
+def test_maintained_serving_can_be_disabled(tables, model):
+    (port, ref), _ = _maintained_pair(tables)
+    [(resp, info), (jresp, jinfo)] = _serve_both(
+        (port, ref), [("Q1.1", None)], dict(serve_maintained=False))
+    _check(resp[0], model)
+    _same_responses(resp, jresp)
+    assert info["maintained_served"] == jinfo["maintained_served"] == 0
 
 
 # ---------------------------------------------------------------------------
