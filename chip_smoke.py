@@ -136,6 +136,38 @@ Phases (each raises on failure; nothing is caught):
    sampled ones: ``maintained_served`` must equal the canonical count,
    and every answer the composed flavor's.  ``[ivm]``: attach and rebuild
    seconds, ms per event, rows touched, and the recompute ms after it.
+6e. Durability (seed+5): a fresh engine (its own dimension tables) calls
+   ``persist(root, keep=2)`` (the genesis checkpoint) under a temporary
+   directory (the roomier of the temporary directory and this script's
+   directory; fewer free bytes than 3x the state raises), and it and a
+   volatile twin take the same stream: 6 fact appends of 1%, deletes and
+   upserts of 0.5% of part's and customer's keys, an ``append_rows`` of
+   0.5% of supplier, ``compact("part")`` (``auto_compact=False``, so
+   customer's and supplier's deltas stay live), a checkpoint forced by
+   the manager, 2 more fact appends; each durable mutation is timed
+   beside the twin's.  Three recoveries with ``SSBEngine.open(root,
+   device="cuda")``: (a) after a clean ``close()``; on a second root whose
+   log goes through a ``FailpointFS``, (c) after a kill at the middle leaf
+   write of the forced checkpoint (``checkpoint_crash_sites``: the steps
+   before it stay, the replay covers every record since), and then, on the
+   recovered engine, (b) after a kill in mode "after" at the fsync of the
+   last fact append's record (durable, never published: it replays).  Each
+   time the epoch equals the surviving record count; the cached, cold and
+   mega paths and a ``kernel="torch"`` engine on the recovered state
+   answer the 13 queries as the volatile twin over the surviving prefix,
+   bit for bit, with the fixed launches (phase 6's live counts on a
+   dimension with a delta, phase 4's on one without), and
+   ``probe_filter_rows_delta`` and ``fused_query`` are held against their
+   plain versions on the recovered operands.  Engine (a) then takes one
+   more append (logged; 4 ``probe_rows``) and answers as the twin.
+   ``[durable]``: durable and volatile ms per mutation kind, WAL bytes per
+   record, each checkpoint's bytes and seconds (device to host, CRC,
+   writes with fsync, rename, the disk rate beside the cost model's
+   constant, the engine lock's hold), each recovery's load, build and
+   replay per record, the phase's seconds; ``[plan]``: the modeled
+   checkpoint write and record replay beside the measured ones, and
+   ``plan_checkpoint``'s decision after each publish.  The roots are
+   removed at the phase's end.
 7. Skew path (the JAX package's ``benchmarks/skew_sweep.py`` at SSB SF10
    sizes): a 2,000,000-key dimension with part's geometry, probed by
    60,000,000 Zipf(s) keys for s in the paper's grid {0, 0.5, 1.5, 2}.
@@ -179,6 +211,7 @@ from __future__ import annotations
 import argparse
 import dataclasses
 import json
+import os
 from fractions import Fraction
 import re
 import subprocess
@@ -589,11 +622,11 @@ def main() -> int:
                                 for lo in range(0, m, CHUNK)])
         return moved + sector_bytes(alive)
 
-    def check_fused(eng, label):
+    def check_fused(eng, label, timed=True):
         """``fused_query`` (and the ``pack_query_bits`` before it) against
         its plain version on all 13 queries' operands of ``eng`` (over its
-        own fact table's physical rows); times it on each and prints its
-        bytes, bound and launches x gap there."""
+        own fact table's physical rows); unless ``timed`` is False, times
+        it on each and prints its bytes, bound and launches x gap there."""
         ms, gap, bound_sum, every_sum = {}, 0.0, 0.0, 0.0
         cols = dict(eng.tables["lineorder"].columns)
         for q in names:
@@ -619,6 +652,9 @@ def main() -> int:
             if e:
                 raise AssertionError(f"fused_query {q} ({label}) differs "
                                      f"from its plain version by {e}")
+            if not timed:
+                del dim_ops, fmeasure, got, bits, want_bits
+                continue
             ms[q] = event_ms(lambda: fused.fn(dim_ops, fmeasure,
                                               num_segments=size),
                              KERNEL_REPS)
@@ -655,6 +691,8 @@ def main() -> int:
             del dim_ops, fmeasure, got, bits, want_bits
         log(f"[parity] pack_query_bits and fused_query on all {len(names)} "
             f"queries' operands ({label}): bit-identical")
+        if not timed:
+            return ms
         log(f"[kernel] fused_query ms per launch by query ({label}): "
             f"{json.dumps({q: round(v, 4) for q, v in ms.items()})}")
         log(f"[kernel-query] fused_query sum over {len(names)} queries "
@@ -1937,6 +1975,332 @@ def main() -> int:
         f"{len(reqs) / ivm['serve_s']:.2f} requests/s")
     log(f"[6d] maintained views: {secs_6d:.1f} s")
 
+    # -- 6e. durability -------------------------------------------------------
+    import shutil
+    import tempfile
+    from repro_torch.durability import (CrashPoint, FailpointFS, boom_on,
+                                        checkpoint_crash_sites, engine_state,
+                                        read_records, state_nbytes)
+    from repro_torch.durability.manager import WAL_NAME
+    t_6e = time.perf_counter()
+    rng = np.random.default_rng(args.seed + 5)
+    launches_6e = dict(_ZERO)
+    dur = {"ms": {}, "plans": [], "recovery": {}}
+
+    def dim_ops_6e(t):
+        """The stream's dimension mutations over ``t``'s dimension tables:
+        deletes then upserts of MUTATION_FRAC of part's and customer's
+        keys, an append of MUTATION_FRAC of supplier's rows (new keys),
+        then compact("part"); customer's and supplier's deltas stay live
+        (``auto_compact=False``), so recovery restores and replays them."""
+        ops = []
+        for dim in ("part", "customer"):
+            pk = t[dim][DIM_PK[dim]].cpu().numpy()
+            n = pk.shape[0]
+            k = max(1, int(n * MUTATION_FRAC))
+            ops.append(("delete", dim, rng.choice(pk, k, replace=False)
+                        .astype(np.int32)))
+            ops.append(("upsert", dim, (rng.choice(pk, k, replace=False)
+                                        .astype(np.int32),
+                                        rng.integers(0, n, k,
+                                                     dtype=np.int32))))
+        n = t["supplier"].n_rows
+        k = max(1, int(n * MUTATION_FRAC))
+        src = rng.integers(0, n, k)
+        cols = {c: v.cpu().numpy()[src]
+                for c, v in t["supplier"].columns.items()}
+        cols["suppkey"] = np.arange(n, n + k, dtype=np.int32)
+        ops.append(("append_rows", "supplier", cols))
+        ops.append(("compact", "part", None))
+        return ops
+
+    def apply_6e(eng, op):
+        kind, dim, data = op
+        if kind == "append_fact_rows":
+            eng.append_fact_rows(data)
+        elif kind == "delete":
+            eng.ingest(dim, data, op="delete", auto_compact=False)
+        elif kind == "upsert":
+            eng.ingest(dim, data[0], data[1], op="upsert",
+                       auto_compact=False)
+        elif kind == "append_rows":
+            eng.append_rows(dim, data, auto_compact=False)
+        else:
+            eng.compact(dim)
+
+    base_6e = own_dims()
+    facts = [generate_fact_batch(base_6e, n_batch, rng) for _ in range(9)]
+    head = [("append_fact_rows", None, b) for b in facts[:6]] + \
+        dim_ops_6e(base_6e)
+    tail = [("append_fact_rows", None, b) for b in facts[6:8]]
+    # the roots go where the disk has most room: the temporary directory
+    # or a git-ignored directory beside this script
+    spots = [tempfile.gettempdir(), str(Path(__file__).resolve().parent)]
+    spot = max(spots, key=lambda p: shutil.disk_usage(p).free)
+    dur_dir = tempfile.mkdtemp(prefix=".durable_", dir=spot)
+    try:
+        vol = SSBEngine(own_dims())
+        de = SSBEngine(own_dims())
+        vol.warm_cache()
+        de.warm_cache()
+        sync()
+        state_b = state_nbytes(de)
+        free = shutil.disk_usage(dur_dir).free
+        log(f"[durable] roots under {dur_dir}: {free} bytes free "
+            f"(candidates: " + ", ".join(
+                f"{p} {shutil.disk_usage(p).free}" for p in spots)
+            + f"); state_nbytes {state_b}")
+        if free < 3 * state_b:
+            raise AssertionError(f"{free} bytes free under {dur_dir}, fewer "
+                                 f"than 3x the checkpoint's {state_b}")
+        root1 = os.path.join(dur_dir, "r1")
+        t = time.perf_counter()
+        mgr = de.persist(root1, keep=2)
+        dur["genesis_s"] = time.perf_counter() - t
+        dur["genesis"] = dict(mgr.last_checkpoint)
+
+        def step(op):
+            """One mutation on the durable engine and on the volatile
+            twin, each timed by the host clock ending in a synchronize;
+            the checkpoint decision after it."""
+            b0 = mgr.bytes_logged
+            ms_d = timed_call(lambda: apply_6e(de, op)) * 1e3
+            ms_v = timed_call(lambda: apply_6e(vol, op)) * 1e3
+            dur["ms"].setdefault(op[0], []).append(
+                (ms_d, ms_v, mgr.bytes_logged - b0))
+            p = mgr.last_plan
+            dur["plans"].append((op[0], op[1], de.epoch, p))
+            if de.epoch != vol.epoch:
+                raise AssertionError(f"durable epoch {de.epoch} != volatile "
+                                     f"{vol.epoch} after {op[:2]}")
+
+        for op in head:
+            step(op)
+        want_pc = vol.run_all(fusion="composed")
+        n_pc = de.epoch
+        t = time.perf_counter()
+        mgr.checkpoint(de)
+        dur["forced_s"] = time.perf_counter() - t
+        dur["forced"] = dict(mgr.last_checkpoint)
+        for op in tail:
+            step(op)
+        want_final = vol.run_all(fusion="composed")
+        sync()
+        info1 = mgr.info()
+        de.close()
+        del de
+        torch.cuda.empty_cache()
+
+        def live_counts(live):
+            """The fixed launches of the four paths when the dimensions
+            ``live`` maps to True hold a live delta: phase 6's live counts
+            on such a dimension, phase 4's on the others."""
+            want = dict(_ZERO, probe_rows=4 + len(unfiltered),
+                        fused_query=len(names), pack_query_bits=len(names))
+            for q in names:
+                for d in SSB_QUERIES[q].dim_filters:
+                    k = ("probe_filter_rows_delta" if live[d]
+                         else "probe_filter_rows")
+                    want[k] += 1
+                    want["pack_bits"] += 2 if live[d] else 1
+            return want
+
+        for flag, ref in ((True, EXPECTED_LIVE), (False, EXPECTED_LAUNCHES)):
+            if live_counts(dict.fromkeys(DIM_PK, flag)) != ref:
+                raise AssertionError("the live-count rule does not give "
+                                     "phase 4's and phase 6's counts")
+
+        def check_recovered(rec, want, label, root, fs=None):
+            """A recovered engine: its epoch is the surviving record count;
+            its four paths (cached, cold, mega, and a kernel="torch"
+            engine on its state) equal ``want`` bit for bit, with the fixed
+            launches; probe_filter_rows_delta and fused_query against their
+            plain versions on its operands."""
+            n_rec = len(read_records(os.path.join(root, WAL_NAME), fs))
+            if rec.epoch != n_rec:
+                raise AssertionError(f"{label}: epoch {rec.epoch}, "
+                                     f"{n_rec} surviving records")
+            drive_paths(rec, PATHS)  # warm-up pass
+            (res_r, _), got = counted(lambda: drive_paths(rec, PATHS))
+            for k, v in got.items():
+                launches_6e[k] += v
+            live = {d: rec.indexes[d].delta is not None for d in DIM_PK}
+            check_counts(got, live_counts(live), f"{label}, four paths")
+            tw = SSBEngine(rec.tables, indexes=rec.indexes,
+                           policy=ExecutionPolicy(kernel="torch"))
+            res_r["torch"] = tw.run_all(fusion="composed")
+            del tw
+            check_agree(res_r, want, ("cached", "cached_warm", "cold",
+                                      "mega", "torch"), label)
+            for dim in DIM_PK:
+                if not live[dim]:
+                    continue
+                idx = effective_index(rec.indexes[dim])
+                tbl, dl = idx.table, idx.delta
+                fk = rec.tables["lineorder"][FACT_FK[dim]]
+                dmask = SSB_QUERIES[FILTER_QUERY[dim]].dim_filters[dim](
+                    rec.tables[dim])
+                check_probe_kernel(
+                    "probe_filter_rows_delta",
+                    (tbl.keys, tbl.values, slot_predicate(tbl, dmask),
+                     encode(idx.dictionary, fk), tbl.hash_mode, dl.keys,
+                     delta_slot_words(dl, dmask), fk, dl.hash_mode), (3, 7),
+                    dim, 2 * tbl.bucket_width + 2 * dl.bucket_width + 8,
+                    timed=False)
+            check_fused(rec, label, timed=False)
+            r = dict(rec.durability.recovery)
+            dur["recovery"][label] = r
+            log(f"[agree] {label}: epoch {rec.epoch} = {n_rec} surviving "
+                f"records ({r['records_replayed']} replayed past the "
+                f"checkpoint at epoch {r['checkpoint_epoch']}); all "
+                f"{len(names)} queries, cached, cold, mega and a "
+                "kernel='torch' engine on the recovered state, equal the "
+                "volatile engine over the surviving prefix, bit for bit; "
+                f"launches {json.dumps(got)}; live deltas "
+                f"{sorted(d for d, v in live.items() if v)}; "
+                "probe_filter_rows_delta and fused_query bit-identical to "
+                "their plain versions on the recovered operands")
+            torch.cuda.empty_cache()
+
+        # (a) after a clean close()
+        rec_a = SSBEngine.open(root1, device="cuda", keep=2)
+        check_recovered(rec_a, want_final, "recovery (a), clean close",
+                        root1)
+
+        # (c) a kill at a leaf write of the forced checkpoint, then (b) a
+        # kill after the fsync of the last fact append's record, on a
+        # second root whose log goes through a FailpointFS
+        fs = FailpointFS(np.random.default_rng(args.seed + 5))
+        root2 = os.path.join(dur_dir, "r2")
+        d2 = SSBEngine(own_dims())
+        mgr2 = d2.persist(root2, fs=fs, keep=2)
+        for op in head:
+            apply_6e(d2, op)
+        n_logged = len(read_records(os.path.join(root2, WAL_NAME), fs))
+        tree, _ = engine_state(d2)
+        n_leaves = sum(len(v) for grp in tree.values() for v in grp.values())
+        del tree
+        # the kill lands at the write of the middle leaf
+        steps_before = mgr2.ckpt.steps()
+        with checkpoint_crash_sites(boom_on("ckpt_save", nth=n_leaves // 2)):
+            try:
+                mgr2.checkpoint(d2)
+            except CrashPoint as e:
+                killed = str(e)
+            else:
+                raise AssertionError("the checkpoint kill did not fire")
+        if mgr2.ckpt.steps() != steps_before:
+            raise AssertionError(f"the killed save left steps "
+                                 f"{mgr2.ckpt.steps()}, not {steps_before}")
+        del d2, mgr2
+        torch.cuda.empty_cache()
+        rec_c = SSBEngine.open(root2, fs=fs, device="cuda", keep=2)
+        if rec_c.epoch != n_pc or rec_c.durability.recovery[
+                "checkpoint_epoch"] != steps_before[-1]:
+            raise AssertionError(f"recovery (c): epoch {rec_c.epoch}, "
+                                 f"checkpoint "
+                                 f"{rec_c.durability.recovery}")
+        log(f"[durable] recovery (c): {killed} (of {n_leaves} leaves); "
+            f"{n_logged} records in the log; the steps before it stay "
+            f"({steps_before}) and the replay covers every record past "
+            f"epoch {steps_before[-1]}")
+        check_recovered(rec_c, want_pc, "recovery (c), killed checkpoint",
+                        root2, fs)
+        rec_c.durability.checkpoint(rec_c)
+        apply_6e(rec_c, tail[0])
+        fs.arm(0, "after", site="fsync")
+        try:
+            apply_6e(rec_c, tail[1])
+        except CrashPoint as e:
+            killed = str(e)
+        else:
+            raise AssertionError("the log kill did not fire")
+        fs.disarm()
+        if rec_c.epoch != n_pc + 1:
+            raise AssertionError("the killed append published its epoch")
+        del rec_c
+        torch.cuda.empty_cache()
+        rec_b = SSBEngine.open(root2, fs=fs, device="cuda", keep=2)
+        log(f"[durable] recovery (b): {killed}; the record is durable, its "
+            f"epoch {n_pc + 2} was never published, and it replays")
+        check_recovered(rec_b, want_final,
+                        "recovery (b), killed after the record's fsync",
+                        root2, fs)
+        rec_b.close()
+        del rec_b
+        torch.cuda.empty_cache()
+
+        # (a) takes one more append: logged, and it answers as the twin
+        wal_a = rec_a.durability.wal.size
+        _, got = counted(lambda: apply_6e(
+            rec_a, ("append_fact_rows", None, facts[8])))
+        for k, v in got.items():
+            launches_6e[k] += v
+        check_counts(got, EXPECTED_APPEND, "recovery (a), one more append")
+        apply_6e(vol, ("append_fact_rows", None, facts[8]))
+        if rec_a.durability.records_logged != 1 or \
+                rec_a.durability.wal.size <= wal_a:
+            raise AssertionError("the append after recovery was not logged")
+        res_a9, got = counted(lambda: rec_a.run_all(fusion="composed"))
+        for k, v in got.items():
+            launches_6e[k] += v
+        check_agree({"recovered": res_a9}, vol.run_all(fusion="composed"),
+                    ("recovered",), "recovery (a), one more append")
+        log(f"[agree] recovery (a) after one more append (logged, "
+            f"{rec_a.durability.wal.size - wal_a} WAL bytes): all "
+            f"{len(names)} queries equal the volatile engine's, bit for bit")
+        rec_a.close()
+        del rec_a, vol
+        torch.cuda.empty_cache()
+    finally:
+        shutil.rmtree(dur_dir)
+    secs_6e = time.perf_counter() - t_6e
+
+    # [durable] and [plan] lines
+    for mkind, rows_ in dur["ms"].items():
+        d_ms = [r[0] for r in rows_]
+        v_ms = [r[1] for r in rows_]
+        log(f"[durable] {smi}: {mkind} x{len(rows_)}: durable ms "
+            f"{json.dumps([round(x, 3) for x in d_ms])}, volatile ms "
+            f"{json.dumps([round(x, 3) for x in v_ms])}; median durable / "
+            f"volatile {np.median(d_ms) / np.median(v_ms):.3f}; WAL bytes "
+            f"per record {json.dumps(sorted({r[2] for r in rows_}))}")
+    for label in ("genesis", "forced"):
+        c = dur[label]
+        log(f"[durable] {smi}: {label} checkpoint (epoch {c['epoch']}): "
+            f"{c['bytes']} bytes in {dur[label + '_s']:.3f} s: device to "
+            f"host {c['d2h_s']:.3f} s, CRC32 {c['crc_s']:.3f} s, writes "
+            f"with fsync {c['write_s']:.3f} s, rename {c['rename_s']:.4f} s; "
+            f"disk write rate {c['bytes'] / c['write_s'] / 1e9:.3f} GB/s "
+            f"(the cost model's CKPT_DISK_BYTES_PER_S "
+            f"{costmodel.CKPT_DISK_BYTES_PER_S / 1e9:.3f} GB/s); engine lock "
+            f"held {c['lock_s']:.3f} s")
+        log(f"[plan] {smi}: checkpoint_write_seconds({state_b}) "
+            f"{costmodel.checkpoint_write_seconds(state_b):.3f} s beside the "
+            f"measured {label} save {dur[label + '_s']:.3f} s")
+    for label, r in dur["recovery"].items():
+        per = r["replay_s"] / max(1, r["records_replayed"])
+        log(f"[durable] {smi}: {label}: load with CRC {r['load_s']:.3f} s, "
+            f"host to device and build {r['build_s']:.3f} s, replay "
+            f"{r['replay_s']:.3f} s for {r['records_replayed']} records "
+            f"({per * 1e3:.3f} ms per record)")
+    log_b = info1["bytes_logged"] / max(1, info1["records_logged"])
+    r = dur["recovery"]["recovery (c), killed checkpoint"]
+    est = costmodel.wal_replay_seconds(int(log_b), 1, backend="cuda")
+    log(f"[plan] {smi}: wal_replay_seconds of one mean record "
+        f"({log_b:.0f} bytes) {est * 1e3:.4f} ms beside the measured replay "
+        f"{r['replay_s'] / max(1, r['records_replayed']) * 1e3:.3f} ms per "
+        f"record (recovery (c))")
+    for mkind, dim, ep, p in dur["plans"]:
+        log(f"[plan] {smi}: after {mkind}({dim or ''}) at epoch {ep}: "
+            f"plan_checkpoint {p.checkpoint} ({p.reason}); replay "
+            f"estimated {p.est_replay_s * 1e3:.4f} ms, write "
+            f"{p.est_write_s:.3f} s")
+    log(f"[durable] {smi}: log of the first root: {json.dumps(info1)}")
+    log(f"[launches] phase 6e in all (three recoveries' four paths and "
+        f"the append after recovery): {json.dumps(launches_6e)}")
+    log(f"[6e] durability: {secs_6e:.1f} s")
+
     # -- 7. skew path ---------------------------------------------------------------
     dev = engine.device
     t0 = time.perf_counter()
@@ -2281,7 +2645,7 @@ def main() -> int:
         for name in KERNEL_REGISTRY]}
     print(json.dumps(table), flush=True)
     print(json.dumps({"ok": True, "device": {
-        "platform": "gpu", "kind": kind,
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)
     return 0
 

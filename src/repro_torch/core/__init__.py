@@ -1,5 +1,6 @@
 """JSPIM core (PyTorch port): hash dataset, dictionary, probe schedules,
-join/select, dedup, skew statistics, delta buffer, planning."""
+join/select, dedup, skew statistics, delta buffer, planning (probe
+schedules, compaction, fact appends, serving, fusion, checkpoints)."""
 from repro_torch.core.dedup import (Coalesced, coalesce, duplication_factor,
                                     scatter_back, windowed_coalesce_mask)
 from repro_torch.core.delta import (TOMBSTONE, DeltaStats, DeltaTable,
@@ -24,12 +25,12 @@ from repro_torch.core.lookup import (NULL_WORD, HotTable, JoinResult,
                                      probe_hot_cold, probe_with_delta,
                                      select_distinct, select_where_eq,
                                      splice_probe, unpack_words)
-from repro_torch.core.planner import (BatchPlan, CompactionPlan,
-                                      FactAppendPlan, QueryPlan,
-                                      SchedulePlan, plan_batch,
-                                      plan_compaction, plan_fact_append,
-                                      plan_probe, plan_query, refine_plan,
-                                      skew_drift)
+from repro_torch.core.planner import (BatchPlan, CheckpointPlan,
+                                      CompactionPlan, FactAppendPlan,
+                                      QueryPlan, SchedulePlan, plan_batch,
+                                      plan_checkpoint, plan_compaction,
+                                      plan_fact_append, plan_probe,
+                                      plan_query, refine_plan, skew_drift)
 from repro_torch.core.policy import ExecutionPolicy, resolve_policy
 from repro_torch.core.skew import SkewStats, measure_skew, top_keys
 
@@ -48,9 +49,9 @@ __all__ = ["Coalesced", "coalesce", "duplication_factor", "scatter_back",
            "build_hot_table", "hot_hit_count", "join", "overlay_delta",
            "pack_words", "probe", "probe_deduped", "probe_hot_cold",
            "probe_with_delta", "select_distinct", "select_where_eq",
-           "splice_probe", "unpack_words", "BatchPlan", "CompactionPlan",
-           "FactAppendPlan", "QueryPlan", "SchedulePlan", "plan_batch",
-           "plan_compaction", "plan_fact_append", "plan_probe", "plan_query",
+           "splice_probe", "unpack_words", "BatchPlan", "CheckpointPlan",
+           "CompactionPlan", "FactAppendPlan", "QueryPlan", "SchedulePlan",
+           "plan_batch", "plan_checkpoint", "plan_compaction", "plan_fact_append", "plan_probe", "plan_query",
            "refine_plan", "skew_drift",
            "ExecutionPolicy", "resolve_policy", "SkewStats", "measure_skew",
            "top_keys"]

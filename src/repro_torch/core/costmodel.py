@@ -1,8 +1,6 @@
 """Cost models: the paper's analytic PIM model and the host planner's.
 
-PyTorch port of ``repro.core.costmodel`` without the checkpoint pricing
-(``CKPT_*``, ``REPLAY_OPS_PER_RECORD``, ``checkpoint_write_seconds``,
-``wal_replay_seconds``: the durability slice brings them).
+PyTorch port of ``repro.core.costmodel``.
 
 * **The paper's analytic model** (§4): a DDR4-3200 timing model of JSPIM's
   RLU pipeline and of its baselines (single-thread and DuckDB-class CPU
@@ -14,8 +12,10 @@ PyTorch port of ``repro.core.costmodel`` without the checkpoint pricing
   probe-cache extension over an appended fact tail (``plan_fact_append``),
   ``delta_overlay_seconds`` / ``merge_seconds`` / ``rebuild_seconds`` a
   compaction (``plan_compaction``), ``batch_serve_seconds`` one batched
-  serving dispatch (``plan_batch``), and ``fused_query_seconds`` /
-  ``composed_query_seconds`` the two query shapes (``plan_query``).
+  serving dispatch (``plan_batch``), ``fused_query_seconds`` /
+  ``composed_query_seconds`` the two query shapes (``plan_query``), and
+  ``checkpoint_write_seconds`` / ``wal_replay_seconds`` the durability
+  tier's checkpoint-or-defer trade (``plan_checkpoint``).
 
 ``HOST_COSTS`` holds two entries: ``"cpu"``, the reference's, measured
 there on a CPU host, and ``"cuda"``, measured on an NVIDIA H100 by
@@ -460,6 +460,39 @@ def rebuild_seconds(n_build: int, bucket_width: int,
     ns = (3.0 * n * _log2(n) * c.sort_ns_per_elem_log2
           + 8.0 * n * c.pass_ns
           + 10 * c.op_ns)
+    return ns * 1e-9
+
+
+# Durability pricing: WAL-suffix replay against a checkpoint write
+# (planner input: ``planner.plan_checkpoint``).
+# Sustained sequential write rate assumed for a checkpoint's leaf files
+# and fsyncs (an fsync-bound commodity SSD, not a burst cache): a disk
+# constant, the reference's, whatever the device.
+CKPT_DISK_BYTES_PER_S = 0.5e9
+# Fixed per-save overhead: tmp dir, leaf file opens, manifest fsync,
+# directory fsyncs, the atomic rename.
+CKPT_SAVE_FLOOR_S = 5e-3
+# Dispatches per replayed record: a replayed batch re-runs the live
+# ingest / append pipeline (delta apply or tail write, tail probe,
+# splice), so replay debt grows per record as much as per byte.
+REPLAY_OPS_PER_RECORD = 30
+
+
+def checkpoint_write_seconds(state_bytes: int) -> float:
+    """Modeled wall seconds to write one engine checkpoint of this size."""
+    return state_bytes / CKPT_DISK_BYTES_PER_S + CKPT_SAVE_FLOOR_S
+
+
+def wal_replay_seconds(log_bytes: int, n_records: int = 0,
+                       backend: str = "cpu") -> float:
+    """Modeled recovery cost of replaying a WAL suffix: every logged batch
+    re-runs through the normal mutation API, a per-element stream term
+    over the logged array bytes (int32) plus a fixed dispatch term per
+    record.  This is the debt a checkpoint retires."""
+    c = host_costs(backend)
+    elems = max(0, log_bytes) / 4
+    ns = (elems * 10.0 * c.pass_ns
+          + n_records * REPLAY_OPS_PER_RECORD * c.op_ns)
     return ns * 1e-9
 
 

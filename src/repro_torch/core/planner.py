@@ -1,20 +1,22 @@
-"""Planning: probe schedules, compaction, fact appends, serving, fusion.
+"""Planning: probe schedules, compaction, fact appends, serving, fusion,
+checkpoints.
 
-PyTorch port of ``repro.core.planner`` without the checkpoint planner
-(``plan_checkpoint``: the durability slice).  ``plan_probe`` is the paper's skew-adaptive
-choice (§3.3) realized as planning: fed with the fact-side ``SkewStats``
-recorded at index build and the index's bucket geometry, it prices every
-probe schedule through ``costmodel.probe_schedule_seconds`` and picks
-``gathered``, ``deduped`` or ``hot_cold`` (a replicated hot table plus a
-compacted cold remainder); ``stream`` is priced for reporting and taken
-only when forced.  A non-default schedule needs a ``GATHERED_MARGIN`` win.
-``plan_compaction`` decides whether a dimension's delta folds back into
-its main table now (and in which flavor), ``plan_fact_append`` whether a
-cached probe is extended over an appended fact tail or re-probed,
-``skew_drift`` whether the fact-side skew moved enough since it was
-measured to re-plan, ``plan_batch`` how many serving requests one
-dispatch takes, and ``plan_query`` whether a query suite runs as one
-fused dispatch ("mega") or per query ("composed").
+PyTorch port of ``repro.core.planner``.  ``plan_probe`` is the paper's
+skew-adaptive choice (§3.3) realized as planning: fed with the fact-side
+``SkewStats`` recorded at index build and the index's bucket geometry, it
+prices every probe schedule through ``costmodel.probe_schedule_seconds``
+and picks ``gathered``, ``deduped`` or ``hot_cold`` (a replicated hot
+table plus a compacted cold remainder); ``stream`` is priced for
+reporting and taken only when forced.  A non-default schedule needs a
+``GATHERED_MARGIN`` win.  ``plan_compaction`` decides whether a
+dimension's delta folds back into its main table now (and in which
+flavor), ``plan_fact_append`` whether a cached probe is extended over an
+appended fact tail or re-probed, ``skew_drift`` whether the fact-side
+skew moved enough since it was measured to re-plan, ``plan_batch`` how
+many serving requests one dispatch takes, ``plan_query`` whether a query
+suite runs as one fused dispatch ("mega") or per query ("composed"), and
+``plan_checkpoint`` whether the write-ahead log's suffix earns a fresh
+checkpoint.
 
 Every planner prices on ``costmodel.HOST_COSTS[backend]``: ``"cpu"`` (the
 reference's entry; every plan there equals the JAX package's) or
@@ -294,6 +296,51 @@ def plan_fact_append(plan: SchedulePlan, *, n_tail: int, n_cached: int,
     return FactAppendPlan(extend=extend,
                           reason="tail" if extend else "reprobe",
                           est_tail_s=tail, est_reprobe_s=reprobe)
+
+
+# ---------------------------------------------------------------------------
+# Durability: when does the WAL suffix earn a fresh checkpoint?
+# ---------------------------------------------------------------------------
+
+# Checkpoint only once the modeled replay debt of the log suffix exceeds
+# this multiple of the checkpoint's own write cost: both sides of the
+# model are coarse, and a premature checkpoint steals disk bandwidth from
+# the log's fsyncs for a recovery that may never run.
+CKPT_SAFETY = 2.0
+# Below this many logged bytes the decision is not even priced: a
+# checkpoint per tiny mutation would turn every ingest into a state dump.
+CKPT_MIN_LOG_BYTES = 1 << 16
+
+
+@dataclasses.dataclass(frozen=True)
+class CheckpointPlan:
+    """Hashable checkpoint-or-defer decision for the durability tier."""
+
+    checkpoint: bool
+    reason: str          # "replay_debt" | "log_small" | "write_dominates"
+    est_replay_s: float  # modeled recovery replay of the current suffix
+    est_write_s: float   # modeled cost of writing the checkpoint now
+
+
+def plan_checkpoint(*, log_bytes: int, n_records: int, state_bytes: int,
+                    backend: str = "cpu", safety: float = CKPT_SAFETY,
+                    min_log_bytes: int = CKPT_MIN_LOG_BYTES
+                    ) -> CheckpointPlan:
+    """Decide whether the log suffix since the last checkpoint justifies
+    writing the engine's state now: recovery time against write cost.
+    Every logged byte and record adds replay debt
+    (``costmodel.wal_replay_seconds`` on ``backend``), a checkpoint costs
+    one state write (``costmodel.checkpoint_write_seconds``).  Checkpoint
+    when the debt exceeds ``safety`` x the write; below ``min_log_bytes``
+    of log, never."""
+    replay = costmodel.wal_replay_seconds(log_bytes, n_records,
+                                          backend=backend)
+    write = costmodel.checkpoint_write_seconds(state_bytes)
+    if log_bytes < min_log_bytes:
+        return CheckpointPlan(False, "log_small", replay, write)
+    if replay > safety * write:
+        return CheckpointPlan(True, "replay_debt", replay, write)
+    return CheckpointPlan(False, "write_dominates", replay, write)
 
 
 # ---------------------------------------------------------------------------

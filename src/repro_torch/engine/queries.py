@@ -66,7 +66,15 @@ Mutation hooks: every published mutation is delivered as a
 ``MutationEvent`` to the hooks registered with ``add_mutation_hook`` (the
 incremental view maintenance of ``repro_torch.ivm`` rides on them), in
 mutation order, under the engine lock, once its epoch has published.
-Durability (the write-ahead log) waits for a later slice.
+
+Durability (DESIGN.md §10, ``repro_torch.durability``): ``persist(root)``
+writes a genesis checkpoint and opens a write-ahead log; from then on
+every mutation batch is appended and fsynced (``_wal_log``, after
+validation and before any state changes) and, once its epoch publishes,
+the cost model weighs a checkpoint (``_wal_publish``).  ``open(root)``
+recovers an engine from the newest verified checkpoint plus the log's
+replay.  ``close()`` refuses every later mutation; queries and held
+snapshots keep answering.
 """
 from __future__ import annotations
 
@@ -483,13 +491,16 @@ class _QueryRunner:
 def _mutates(fn):
     """Mutation-method guard: the engine's reentrant lock, so a snapshot
     (a serving tier's refresh) or a background compaction's publish never
-    sees half a mutation.  Reentrant because mutations compose
-    (``append_rows`` drives ``ingest``, which may drive ``compact``).  A
-    mutation that raises leaves no staged event behind: a later publish
-    would deliver a batch the engine never applied."""
+    sees half a mutation, and the closed check, so a mutation after
+    ``close()`` is a clear ``RuntimeError`` rather than a write to a closed
+    log.  Reentrant because mutations compose (``append_rows`` drives
+    ``ingest``, which may drive ``compact``).  A mutation that raises
+    leaves no staged event behind: a later publish would deliver a batch
+    the engine never applied."""
     @functools.wraps(fn)
     def wrapper(self, *a, **k):
         with self._mu:
+            self._check_open()
             try:
                 return fn(self, *a, **k)
             except BaseException:
@@ -571,8 +582,13 @@ class SSBEngine(_QueryRunner):
         # bumped by every mutation that changes the engine's state
         self._epoch = 0
         # -- epoch snapshots ----------------------------------------------
-        # mutations serialize under this lock (queries take none)
+        # mutations serialize under this lock (queries take none), and a
+        # closed engine refuses them
         self._mu = threading.RLock()
+        self._closed = False
+        # the durability tier: attached by ``persist`` / ``open``; None is
+        # a volatile engine
+        self._durability = None
         # live snapshots, held weakly: one nobody references stops pinning
         # even unreleased.  A generation counts the buffer families the
         # engine allocates for one piece of state; a snapshot pins the
@@ -759,22 +775,39 @@ class SSBEngine(_QueryRunner):
                 "pin_copies": self._pin_copies,
                 "fact_gen": self._fact_gen}
 
-    # -- mutation hooks ------------------------------------------------------
-    def _stage_event(self, kind: str, meta: dict | None = None,
-                     arrays: dict | None = None) -> None:
-        """Stage a validated batch for the hooks (after validation, before
-        any state changes; ``_notify_hooks`` delivers it once the epoch
-        publishes, so observers only see batches the engine applied)."""
+    # -- write-ahead log and mutation hooks ----------------------------------
+    def _wal_log(self, kind: str, meta: dict | None = None,
+                 arrays: dict | None = None) -> None:
+        """Write-ahead hook, after validation and before any state changes:
+        the durability tier appends and fsyncs the record, stamped with the
+        epoch this mutation will publish (not on a volatile engine, nor
+        during recovery's replay, which re-drives the API from the log);
+        and the validated batch is staged for the mutation hooks, which
+        ``_wal_publish`` delivers once the epoch publishes, so observers
+        only see batches the engine applied."""
+        d = self._durability
+        if d is not None and not d.replaying:
+            d.log_mutation(self, kind, meta, arrays)
         if self._mutation_hooks:
             self._pending_events.append(
                 (kind, dict(meta or {}), dict(arrays or {})))
 
+    def _wal_publish(self) -> None:
+        """Post-publish hook: the durability tier weighs a checkpoint (the
+        cost model's replay debt against the state write), then the staged
+        batches reach the mutation hooks."""
+        d = self._durability
+        if d is not None and not d.replaying:
+            d.on_publish(self)
+        self._notify_hooks()
+
     def _notify_hooks(self) -> None:
         """Deliver staged batches to the hooks, in mutation order, under
-        the engine lock.  Nested mutations (an auto-compaction inside
-        ``ingest``, ``ingest`` inside ``append_rows``) stage several
-        events that all drain at the outermost publish, stamped with the
-        final epoch: the epoch their combined effect is visible at."""
+        the engine lock (at the ``_wal_publish`` call sites).  Nested
+        mutations (an auto-compaction inside ``ingest``, ``ingest`` inside
+        ``append_rows``) stage several events that all drain at the
+        outermost publish, stamped with the final epoch: the epoch their
+        combined effect is visible at."""
         if not self._pending_events:
             return
         pending, self._pending_events = self._pending_events, []
@@ -815,8 +848,79 @@ class SSBEngine(_QueryRunner):
             if not self._mutation_hooks:
                 self._pending_events.clear()
 
+    # -- durability (WAL + checkpoints, DESIGN.md §10) ----------------------
+    def persist(self, root: str, **kw):
+        """Start durability for this engine at a fresh ``root``.
+
+        Writes a genesis checkpoint of the current epoch, opens the WAL
+        and attaches the manager: from here every mutation batch is logged
+        and fsynced before its epoch publishes, and checkpoints are taken
+        on the cost model's trigger.  Recover later with
+        ``SSBEngine.open(root)``.  Keyword arguments pass through to
+        ``DurabilityManager`` (``fs``, ``keep``, ``min_log_bytes``,
+        ``safety``, ``auto_checkpoint``); returns the manager.
+        """
+        from repro_torch.durability.manager import DurabilityManager
+
+        with self._mu:
+            self._check_open()
+            if self._durability is not None:
+                raise ValueError("this engine is already durable at "
+                                 f"{self._durability.root!r}")
+            return DurabilityManager.create(root, self, **kw)
+
+    @classmethod
+    def open(cls, root: str, **kw) -> "SSBEngine":
+        """Recover an engine from a durability root (DESIGN.md §10), on the
+        card unless ``device=`` names another.
+
+        Restores the newest checkpoint whose leaves verify (falling back
+        to older steps on corruption), truncates the WAL's torn tail,
+        replays the log's suffix through the normal mutation API, and
+        returns the engine with the log open for new mutations.  Keyword
+        arguments pass through to ``durability.open_engine``.
+        """
+        from repro_torch.durability.manager import open_engine
+
+        return open_engine(root, **kw)
+
+    @property
+    def durability(self):
+        """The attached ``DurabilityManager``, or None (volatile engine)."""
+        return self._durability
+
+    def close(self) -> None:
+        """Close the engine: detach durability and refuse every later
+        mutation with ``RuntimeError``.  Idempotent.  A closed engine (and
+        its live snapshots) keeps answering queries, so a serving tier can
+        drain its reads while a recovered incarnation takes over."""
+        with self._mu:
+            if self._closed:
+                return
+            self._closed = True
+            if self._durability is not None:
+                self._durability.close()
+                self._durability = None
+
+    @property
+    def closed(self) -> bool:
+        return self._closed
+
+    def _check_open(self) -> None:
+        if self._closed:
+            raise RuntimeError(
+                "engine is closed: mutations are refused (queries and "
+                "held snapshots keep working; reopen the durability root "
+                "with SSBEngine.open, or build a new engine, to mutate)")
+
     # -- §3.2.3 update commands (invalidate the affected dim's probes) -----
     def _replace_table(self, dim: str, table) -> None:
+        if self._durability is not None:
+            raise RuntimeError(
+                "entry_update/index_update/table_update are raw §3.2.3 "
+                "cell writes outside the WAL mandate: a durable engine "
+                "would silently lose them on recovery; use ingest / "
+                "append_rows, or close() durability first")
         self.indexes[dim] = dataclasses.replace(self.indexes[dim],
                                                 table=table)
         # the update wrote fresh planes: a new generation (snapshots keep
@@ -824,10 +928,12 @@ class SSBEngine(_QueryRunner):
         self._index_gens[dim] = self._index_gens.get(dim, 0) + 1
         self._epoch += 1
         self.invalidate_probe_cache(dim)
-        # a raw cell write cannot be maintained incrementally: observers
-        # invalidate on this kind
-        self._stage_event("raw_update", {"dim": dim})
-        self._notify_hooks()
+        if self._mutation_hooks:
+            # a raw cell write bypasses the log (volatile engines only) and
+            # cannot be maintained incrementally: observers invalidate on
+            # this kind
+            self._pending_events.append(("raw_update", {"dim": dim}, {}))
+            self._notify_hooks()
 
     @_mutates
     def entry_update(self, dim: str, bucket, slot, key, value_word) -> None:
@@ -860,7 +966,7 @@ class SSBEngine(_QueryRunner):
     @_mutates
     def ingest(self, dim: str, keys, payloads=None, *, op: str = "upsert",
                auto_compact: bool = True,
-               _event: bool = True) -> CompactionPlan:
+               _wal: bool = True) -> CompactionPlan:
         """Absorb a batch of index ops into ``dim``'s delta buffer.
 
         ``keys`` are raw dimension keys; ``op`` is "insert" / "upsert"
@@ -869,8 +975,8 @@ class SSBEngine(_QueryRunner):
         and the planner says so, folds the delta into the main table.
         Returns the planner's decision either way.  Batches are validated
         here and rejected with a ``ValueError`` naming the argument.
-        ``_event`` is internal: ``append_rows`` stages one event covering
-        its own ingest.
+        ``_wal`` is internal: ``append_rows`` logs one record (and stages
+        one event) covering its own ingest.
         """
         if self.mode != "jspim":
             raise ValueError("ingest requires jspim mode (no index to "
@@ -895,11 +1001,11 @@ class SSBEngine(_QueryRunner):
                                         expect_len=keys.shape[0])
         if keys.shape[0] == 0:  # zero ops change no state
             return self.compaction_plan(dim)
-        if _event:
+        if _wal:
             arrays = {"keys": keys}
             if payloads is not None:
                 arrays["payloads"] = payloads
-            self._stage_event("ingest", {"dim": dim, "op": op}, arrays)
+            self._wal_log("ingest", {"dim": dim, "op": op}, arrays)
         before = self.indexes[dim].delta
         self.indexes[dim] = ingest_index(self.indexes[dim], keys, payloads,
                                          op=op)
@@ -918,8 +1024,8 @@ class SSBEngine(_QueryRunner):
         plan = self.compaction_plan(dim)
         if auto_compact and plan.compact:
             self.compact(dim)
-        if _event:
-            self._notify_hooks()
+        if _wal:
+            self._wal_publish()
         return plan
 
     @_mutates
@@ -958,18 +1064,18 @@ class SSBEngine(_QueryRunner):
                 raise ValueError(f"rows[{DIM_PK[dim]!r}]: EMPTY_KEY is "
                                  "reserved as the hash slot sentinel and "
                                  "cannot be a dimension primary key")
-        self._stage_event("append_rows", {"dim": dim}, cols_np)
+        self._wal_log("append_rows", {"dim": dim}, cols_np)
         n0 = t.n_rows
         self.tables[dim] = t.append(cols_np)
         if self.mode == "jspim":
             self.ingest(dim, cols_np[DIM_PK[dim]],
                         np.arange(n0, n0 + n_new, dtype=np.int32),
                         op="insert", auto_compact=auto_compact,
-                        _event=False)
+                        _wal=False)
         else:
             self._epoch += 1
             self.invalidate_probe_cache(dim)
-        self._notify_hooks()
+        self._wal_publish()
 
     # -- fact-side streaming append: probe-cache tail extension ------------
     @_mutates
@@ -1016,7 +1122,7 @@ class SSBEngine(_QueryRunner):
         if n_new == 0:  # strict no-op: nothing moved, nothing invalidates
             return {"appended": 0, "epoch": self._fact_epoch, "dims": {},
                     "capacity_grew": False, "skew_replanned": []}
-        self._stage_event("append_fact_rows", {}, new_cols)
+        self._wal_log("append_fact_rows", {}, new_cols)
         n0 = fact.n_rows
         pad_values = {FACT_FK[d]: _ht.EMPTY_KEY for d in FACT_FK}
         # one bucket for both write windows (table tail and cache splice)
@@ -1042,7 +1148,7 @@ class SSBEngine(_QueryRunner):
         if self.mode != "jspim":  # no index: probes must rerun from cold
             self.invalidate_probe_cache()
             report["skew_replanned"] = []
-            self._notify_hooks()
+            self._wal_publish()
             return report
         for dim in sorted(self._probe_cache):
             ap = self._fact_append_plan(dim, bp, n0)
@@ -1080,7 +1186,7 @@ class SSBEngine(_QueryRunner):
             self._tail_extensions += 1
             report["dims"][dim] = "extended"
         report["skew_replanned"] = self._maybe_replan_fact_skew()
-        self._notify_hooks()
+        self._wal_publish()
         return report
 
     def _fact_append_plan(self, dim: str, n_tail: int,
@@ -1201,14 +1307,16 @@ class SSBEngine(_QueryRunner):
             if idx.delta is not None:
                 self.indexes[dim] = dataclasses.replace(idx, delta=None)
             return
-        # staged after the empty check: an empty compact publishes nothing
-        self._stage_event("compact", {"dim": dim})
+        # logged after the empty check (an empty compact publishes nothing,
+        # so it logs nothing); auto-compactions arrive here too, so replay
+        # reproduces the live fold points
+        self._wal_log("compact", {"dim": dim})
         pinned = self._index_pinned(dim)
         if pinned:
             self._pin_copies += 1
         self.indexes[dim] = compact_index(idx, donate=not pinned)
         self._publish_compaction(dim)
-        self._notify_hooks()
+        self._wal_publish()
 
     def _publish_compaction(self, dim: str) -> None:
         # either flavor leaves a generation no snapshot pins: the swap
@@ -1231,6 +1339,7 @@ class SSBEngine(_QueryRunner):
         ``publish_compact``, or ``None`` when there is nothing to fold.
         """
         with self._mu:
+            self._check_open()
             if dim not in self.indexes:
                 raise ValueError(f"dim: unknown dimension {dim!r} (have "
                                  f"{sorted(self.indexes)})")
@@ -1249,12 +1358,13 @@ class SSBEngine(_QueryRunner):
             return False
         dim, source, merged = prepared
         with self._mu:
+            self._check_open()
             if self.indexes[dim] is not source:
                 return False
-            self._stage_event("compact", {"dim": dim})
+            self._wal_log("compact", {"dim": dim})
             self.indexes[dim] = merged
             self._publish_compaction(dim)
-            self._notify_hooks()
+            self._wal_publish()
             return True
 
     def ingest_info(self) -> dict:

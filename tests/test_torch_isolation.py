@@ -38,7 +38,7 @@ class Block:
             raise ImportError(f"blocked: {name}")
 sys.meta_path.insert(0, Block())
 import repro_torch, repro_torch.core, repro_torch.kernels, repro_torch.engine
-import repro_torch.durability, repro_torch.serving
+import repro_torch.durability, repro_torch.serving, repro_torch.checkpoint
 import repro_torch.ivm, repro_torch.configs
 from repro_torch.configs import SSB_PIM
 from repro_torch.core.costmodel import Workload, jspim_join_seconds
@@ -63,6 +63,15 @@ sched.pump()
 assert ticket.response.ok
 assert sched.info()["maintained_served"] == 1
 sched.close()
+import tempfile
+root = tempfile.mkdtemp() + "/durable"
+engine.persist(root)
+engine.append_fact_rows(generate_fact_batch(engine.tables, 8,
+                                            np.random.default_rng(1)))
+engine.close()
+recovered = SSBEngine.open(root, device="cpu")
+assert recovered.epoch == engine.epoch
+recovered.close()
 assert not any(m.split(".")[0] in ("jax", "jaxlib", "repro")
                for m in sys.modules)
 """
@@ -96,6 +105,16 @@ def test_engine_without_device_raises(no_card):
     tables = generate_ssb(0.0001, device="cpu")
     with pytest.raises(RuntimeError, match="device='cpu'"):
         SSBEngine(tables)
+
+
+def test_open_without_device_raises(no_card, tmp_path):
+    """Recovery lands on the card unless the caller asks for the CPU."""
+    from repro_torch.engine import SSBEngine, generate_ssb
+    root = str(tmp_path / "durable")
+    SSBEngine(generate_ssb(0.0001, device="cpu"), device="cpu").persist(root)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        SSBEngine.open(root)
+    assert SSBEngine.open(root, device="cpu").epoch == 0
 
 
 @pytest.mark.parametrize("alone", [False, True], ids=["in_repo", "alone"])

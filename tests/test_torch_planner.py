@@ -297,3 +297,119 @@ def test_plan_probe_on_cpu_still_equals_the_reference():
             want = jplanner.plan_probe(js, bucket_width=8, impl=jimpl,
                                        code_space=50_000)
             assert dataclasses.asdict(got) == dataclasses.asdict(want)
+
+
+# ---------------------------------------------------------------------------
+# checkpoint pricing (the durability tier's trigger)
+# ---------------------------------------------------------------------------
+
+CKPT_CASES = [(0, 0, 0), (1 << 14, 3, 1 << 20), (1 << 16, 1, 64 << 20),
+              (1 << 20, 500, 1 << 20), (1 << 26, 64, 5_157_748_736),
+              (24_000_404, 1, 5_157_748_736)]
+
+
+def test_checkpoint_constants_equal_the_reference():
+    for name in ("CKPT_DISK_BYTES_PER_S", "CKPT_SAVE_FLOOR_S",
+                 "REPLAY_OPS_PER_RECORD"):
+        assert getattr(tcost, name) == getattr(jcost, name), name
+    for name in ("CKPT_SAFETY", "CKPT_MIN_LOG_BYTES"):
+        assert getattr(tplanner, name) == getattr(jplanner, name), name
+
+
+@pytest.mark.parametrize("log_bytes,n_records,state_bytes", CKPT_CASES)
+def test_checkpoint_pricing_equals_the_reference_on_cpu(log_bytes,
+                                                        n_records,
+                                                        state_bytes):
+    assert tcost.checkpoint_write_seconds(state_bytes) == \
+        jcost.checkpoint_write_seconds(state_bytes)
+    assert tcost.wal_replay_seconds(log_bytes, n_records, "cpu") == \
+        jcost.wal_replay_seconds(log_bytes, n_records, "cpu")
+    for kw in ({}, {"safety": 0.05, "min_log_bytes": 1024}):
+        got = tplanner.plan_checkpoint(log_bytes=log_bytes,
+                                       n_records=n_records,
+                                       state_bytes=state_bytes, **kw)
+        want = jplanner.plan_checkpoint(log_bytes=log_bytes,
+                                        n_records=n_records,
+                                        state_bytes=state_bytes, **kw)
+        assert dataclasses.asdict(got) == dataclasses.asdict(want)
+
+
+def test_plan_checkpoint_defers_small_logs():
+    p = tplanner.plan_checkpoint(
+        log_bytes=tplanner.CKPT_MIN_LOG_BYTES - 1, n_records=3,
+        state_bytes=1 << 20)
+    assert not p.checkpoint and p.reason == "log_small"
+
+
+def test_plan_checkpoint_fires_on_replay_debt():
+    # dispatch-dominated CPU replay: a few hundred records dwarf the
+    # write cost of a small state
+    p = tplanner.plan_checkpoint(log_bytes=1 << 20, n_records=500,
+                                 state_bytes=1 << 20, backend="cpu")
+    assert p.checkpoint and p.reason == "replay_debt"
+    assert p.est_replay_s > p.est_write_s
+
+
+@pytest.mark.parametrize("backend", ["cpu", "cuda"])
+def test_plan_checkpoint_defers_when_write_dominates(backend):
+    # huge state, tiny log suffix: rewriting the state costs more than
+    # replaying the records it would save
+    p = tplanner.plan_checkpoint(log_bytes=1 << 17, n_records=1,
+                                 state_bytes=200 << 30, backend=backend)
+    assert not p.checkpoint and p.reason == "write_dominates"
+
+
+@pytest.mark.parametrize("backend", ["cpu", "cuda"])
+def test_plan_checkpoint_monotone_in_log_bytes(backend):
+    decisions = [tplanner.plan_checkpoint(
+        log_bytes=b, n_records=b // 1024, state_bytes=64 << 20,
+        backend=backend).checkpoint
+        for b in (1 << 14, 1 << 20, 1 << 26, 1 << 30, 1 << 36)]
+    # once the replay debt crosses the threshold it never uncrosses
+    assert decisions == sorted(decisions)
+    assert decisions[-1]
+
+
+def test_checkpoint_write_seconds_floor_and_scaling():
+    assert tcost.checkpoint_write_seconds(0) == \
+        pytest.approx(tcost.CKPT_SAVE_FLOOR_S)
+    small, big = (tcost.checkpoint_write_seconds(1 << 20),
+                  tcost.checkpoint_write_seconds(1 << 30))
+    assert tcost.CKPT_SAVE_FLOOR_S < small < big
+
+
+def test_wal_replay_seconds_monotone_and_backend_ordered():
+    a = tcost.wal_replay_seconds(1 << 20, n_records=10, backend="cpu")
+    b = tcost.wal_replay_seconds(1 << 24, n_records=10, backend="cpu")
+    c = tcost.wal_replay_seconds(1 << 24, n_records=1000, backend="cpu")
+    assert 0 < a < b < c
+    # replay is dispatch-dominated on CPU: records, not bytes, drive it
+    per_rec = tcost.wal_replay_seconds(0, n_records=1, backend="cpu")
+    assert per_rec > tcost.wal_replay_seconds(1 << 16, n_records=0,
+                                              backend="cpu")
+    # the card's entry replays the same suffix faster than the CPU's
+    assert 0 < tcost.wal_replay_seconds(1 << 24, n_records=1000,
+                                        backend="cuda") < c
+
+
+@pytest.mark.parametrize("backend", ["tpu", "rocm"])
+def test_checkpoint_pricing_refuses_an_unknown_backend(backend):
+    with pytest.raises(NotImplementedError, match=backend):
+        tcost.wal_replay_seconds(1 << 20, 4, backend=backend)
+    with pytest.raises(NotImplementedError, match=backend):
+        tplanner.plan_checkpoint(log_bytes=1 << 20, n_records=4,
+                                 state_bytes=1 << 20, backend=backend)
+
+
+def test_card_checkpoint_decision_at_sf10():
+    """At SF10 (5,157,748,736 bytes of tables and indexes) the card's
+    entry defers a checkpoint across a stream of 1% fact appends (600,000
+    rows of ten int32 columns a record): replaying them on the card costs
+    far less than writing the state at the disk constant."""
+    state = 5_157_748_736
+    record = 600_000 * 10 * 4 + 404
+    for n in (1, 8, 64):
+        p = tplanner.plan_checkpoint(log_bytes=n * record, n_records=n,
+                                     state_bytes=state, backend="cuda")
+        assert not p.checkpoint and p.reason == "write_dominates", n
+        assert p.est_replay_s < p.est_write_s

@@ -5,9 +5,10 @@ The JAX package's chaos suite on the port's engine (CPU): randomized
 timelines of {submit, pump, ingest, append, delete, compact, fault-arm,
 fault-clear} with faults injected at every serving site (worker crashes
 mid-batch, poisoned batched kernels, slow-worker stragglers,
-snapshot-refresh failures, background-compaction races) and an ingest
-thread killed mid-stream.  Recovery running beside serving waits for the
-durability slice.
+snapshot-refresh failures, background-compaction races), an ingest
+thread killed mid-stream, and crash recovery (``SSBEngine.open``) running
+beside a scheduler that keeps serving the dead incarnation's snapshot
+until it is rebound to the recovered engine.
 
 The single gate every scenario ends with: each **completed** response is
 bit-identical to the single-threaded numpy oracle frozen at the epoch
@@ -351,6 +352,62 @@ def test_ingest_thread_killed_serving_degrades_not_wrong(tables):
     if sched.info()["pinned_epoch"] < eng.epoch:
         assert stale_seen
     sched.close()
+
+
+def test_recovery_concurrent_with_serving(tables, tmp_path):
+    """Crash-recover the engine while a scheduler keeps serving pinned
+    snapshots from the dead incarnation, then rebind: pre-rebind answers
+    are stale-exact at their reported epochs, post-rebind answers serve
+    the recovered head."""
+    eng = _engine(tables)
+    root = os.fspath(tmp_path / "root")
+    eng.persist(root)
+    mirror = ChaosMirror(tables, eng)
+    rng = np.random.default_rng(29)
+    mirror.append_fact(rng, 20)
+    sched = QueryScheduler(eng, ServeConfig())
+    tickets = [sched.submit("Q1.1", PARAM_QUERIES["Q1.1"].sample(rng))]
+    sched.pump()
+    # simulate process death: the WAL handle closes, mutations stop, but
+    # the scheduler still holds the old incarnation's snapshot
+    eng.close()
+    t = sched.submit("Q2.2", PARAM_QUERIES["Q2.2"].sample(rng))
+    tickets.append(t)
+    sched.pump()
+    assert t.response.status == "ok"   # the pinned snapshot outlives close
+    # recovery runs beside serving on the recovered root
+    recovered = {}
+
+    def recover():
+        recovered["eng"] = SSBEngine.open(
+            root, device="cpu", policy=ExecutionPolicy(fusion="composed"))
+
+    rec = threading.Thread(target=recover)
+    rec.start()
+    t2 = sched.submit("Q3.3", PARAM_QUERIES["Q3.3"].sample(rng))
+    tickets.append(t2)
+    sched.pump()
+    rec.join(timeout=120.0)
+    eng2 = recovered["eng"]
+    assert eng2.epoch == eng.epoch   # every published epoch recovered
+    # cut over: serving continues against the recovered incarnation
+    sched.rebind(eng2)
+    t3 = sched.submit("Q4.2", PARAM_QUERIES["Q4.2"].sample(rng))
+    tickets.append(t3)
+    sched.pump()
+    assert t3.response.status == "ok"
+    assert t3.response.epoch == eng2.epoch and not t3.response.stale
+    # post-rebind mutations publish new epochs and serve exactly
+    mirror.eng = eng2
+    mirror.append_fact(rng, 10)
+    t4 = sched.submit("Q4.3", PARAM_QUERIES["Q4.3"].sample(rng))
+    tickets.append(t4)
+    sched.pump()
+    assert t4.response.epoch == eng2.epoch
+    counts = _verify_all(mirror, tickets)
+    assert counts["ok"] == len(tickets)
+    sched.close()
+    eng2.close()
 
 
 # ---------------------------------------------------------------------------
