@@ -168,6 +168,30 @@ Phases (each raises on failure; nothing is caught):
    checkpoint write and record replay beside the measured ones, and
    ``plan_checkpoint``'s decision after each publish.  The roots are
    removed at the phase's end.
+6f. The sharded fact engine (seed+6): ``ShardedSSBEngine.from_streamed``
+   opens SF ``--sf`` into 4 shard regions of one card
+   (``make_data_mesh(4)``, chunks of 2^20 rows); the oracle is a default
+   engine (CUDA kernels) on ``generate_ssb_dims`` and the host
+   concatenation of the same ``stream_ssb_fact`` chunks, and an
+   unsharded ``kernel="torch"`` engine takes every mutation too, for the
+   timings.  The sharded engine's cached ``run_all``, cold and mega
+   answers equal the oracle's bit for bit (the cached and cold paths
+   launch no kernel, mega one ``fused_query`` a query, as on the
+   unsharded torch engine and the snapshot);
+   ``sharded_lookup`` of part's index over the 60M FKs equals
+   ``lookup(impl="cuda")`` (``probe_rows``) on found and on payload
+   where found.  An append of 1% + 1 rows (4 does not divide it) with
+   every dimension cached extends every cached probe per shard, leaves
+   dead rows, none of them found; 0.5% deletes and upserts of part's and
+   customer's keys (live deltas), then ``compact("part")``; a snapshot
+   held across one more append answers at its epoch with uniform
+   stamps, a torn publish (stamps off by one) is refused and
+   ``_wal_publish()`` heals it; reshard 4 -> 1 -> 2, each equal to the
+   oracle, answers and ``logical_fact_columns()`` against its trimmed
+   columns.  ``[shard]``: the open's seconds and rows per second, the
+   suites' ms per path at 4 and 1 shards beside the unsharded torch and
+   default engines, the appends' ms, the lookups' ms, the reshards'
+   seconds, the phase's peak memory and seconds.
 7. Skew path (the JAX package's ``benchmarks/skew_sweep.py`` at SSB SF10
    sizes): a 2,000,000-key dimension with part's geometry, probed by
    60,000,000 Zipf(s) keys for s in the paper's grid {0, 0.5, 1.5, 2}.
@@ -2300,6 +2324,293 @@ def main() -> int:
     log(f"[launches] phase 6e in all (three recoveries' four paths and "
         f"the append after recovery): {json.dumps(launches_6e)}")
     log(f"[6e] durability: {secs_6e:.1f} s")
+
+    # -- 6f. the sharded fact engine ------------------------------------------
+    from repro_torch.engine import (ShardedSSBEngine, generate_ssb_dims,
+                                    sharded_lookup, stream_ssb_fact)
+    from repro_torch.launch import make_data_mesh
+    sync()
+    t_6f = time.perf_counter()
+    resident_6f = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    seed_6f = args.seed + 6
+    dev = engine.device
+    rng = np.random.default_rng(seed_6f)
+    launches_6f = dict(_ZERO)
+    walls_6f = {}       # label -> {path: ms}
+    append_6f = {}      # engine -> [ms per append]
+    reshard_s = {}
+    expect_mega = dict(_ZERO, fused_query=len(names),
+                       pack_query_bits=len(names))
+
+    def counted6f(fn):
+        """``counted``, with the counts added to the phase's total."""
+        out, got = counted(fn)
+        for k, v in got.items():
+            launches_6f[k] += v
+        return out, got
+
+    def suites(eng, label, want):
+        """The cached (``run_all`` from an empty cache), cold and mega
+        paths of ``eng`` (a ``kernel="torch"`` engine, sharded or not),
+        each counted and held against ``want``: no probe kernel, and one
+        fused_query a mega query.  Returns {path: ms}."""
+        walls = {}
+        for path in ("cached", "cold", "mega"):
+            (res, wall), got = counted6f(
+                lambda: drive_paths(eng, (path,)))
+            check_counts(got, expect_mega if path == "mega" else _ZERO,
+                         f"6f {label} {path}", quiet=True)
+            check_agree(res, want, (path,), f"6f {label}")
+            walls[path] = (wall["cached_suite"] if path == "cached"
+                           else sum(wall[path].values())) * 1e3
+        walls["physical"] = eng.tables["lineorder"].n_physical
+        walls_6f[label] = walls
+        return walls
+
+    def answers(eng):
+        return eng.run_all(fusion="composed")
+
+    # 1. open: the fact table streams into 4 shards' capacity tails
+    mesh4 = make_data_mesh(4, device=dev)
+    t = time.perf_counter()
+    sh = ShardedSSBEngine.from_streamed(args.sf, seed_6f, mesh=mesh4,
+                                        chunk_rows=1 << 20)
+    sync()
+    open_s = time.perf_counter() - t
+    n_open = sh.shard_info()["live_rows"]
+    if sh.policy != ExecutionPolicy(kernel="torch"):
+        raise AssertionError(f"sharded default policy {sh.policy}")
+    log(f"[shard] {smi}: from_streamed(sf={args.sf}, seed={seed_6f}, 4 "
+        f"shards, chunks of 2^20 rows): {n_open} rows in {open_s:.3f} s "
+        f"({n_open / open_s:.0f} rows/s); {json.dumps(sh.shard_info())}")
+    # the oracle: a default engine (CUDA kernels) on the dimensions and the
+    # host concatenation of the same chunks; an unsharded kernel="torch"
+    # engine on the same tables for the timings
+    t = time.perf_counter()
+    chunks = list(stream_ssb_fact(args.sf, seed_6f, chunk_rows=1 << 20))
+    host_fact = {k: np.concatenate([c[k] for c in chunks])
+                 for k in chunks[0]}
+    del chunks
+    o_tables = generate_ssb_dims(args.sf, seed_6f, device=dev)
+    o_tables["lineorder"] = Table.from_numpy(host_fact, dev)
+    del host_fact
+    oracle = SSBEngine(o_tables)
+    t_tables = generate_ssb_dims(args.sf, seed_6f, device=dev)
+    t_tables["lineorder"] = o_tables["lineorder"]
+    tw = SSBEngine(t_tables, policy=ExecutionPolicy(kernel="torch",
+                                                    schedule="gathered"))
+    sync()
+    if oracle.tables["lineorder"].n_rows != n_open:
+        raise AssertionError(f"streamed {n_open} rows, the oracle holds "
+                             f"{oracle.tables['lineorder'].n_rows}")
+    log(f"[shard] oracle (default policy) and unsharded kernel='torch' "
+        f"engine on the concatenated chunks: "
+        f"{time.perf_counter() - t:.3f} s")
+
+    # 2. answers: cached, cold and mega equal the oracle's
+    def reference(label):
+        """The oracle's three paths (they must agree) and the unsharded
+        torch engine's, timed; returns the oracle's answers."""
+        res, wall = drive_paths(oracle, ("cached", "cold", "mega"))
+        check_agree(res, res["cached"], ("cold", "mega"), "6f oracle")
+        walls_6f[f"default, {label}"] = dict({
+            p: (wall["cached_suite"] if p == "cached"
+                else sum(wall[p].values())) * 1e3
+            for p in ("cached", "cold", "mega")},
+            physical=oracle.tables["lineorder"].n_physical)
+        suites(tw, f"unsharded torch, {label}", res["cached"])
+        return res["cached"]
+
+    want = reference("open")
+    suites(sh, "4 shards, open", want)
+    log(f"[agree] 6f open: the 4-shard engine's cached, cold and mega "
+        f"answers equal the oracle's, bit for bit")
+
+    # 7. the sharded probe on the card against the probe_rows kernel
+    pidx = oracle.indexes["part"]
+    fkp = oracle.tables["lineorder"]["partkey"]
+    fkp_n = fkp.shape[0]
+    want_pr, got = counted6f(lambda: lookup(pidx, fkp, impl="cuda"))
+    check_counts(got, dict(_ZERO, probe_rows=1), "6f lookup(impl='cuda')",
+                 quiet=True)
+    got_pr, got = counted6f(lambda: sharded_lookup(pidx, fkp, mesh4))
+    check_counts(got, _ZERO, "6f sharded_lookup", quiet=True)
+    f = want_pr.found
+    if not torch.equal(got_pr.found, f) or \
+            not torch.equal(got_pr.payload[f], want_pr.payload[f]):
+        raise AssertionError("sharded_lookup differs from probe_rows")
+    lookup_ms = {
+        "sharded_lookup, 4 shards": float(np.median(
+            [timed_call(lambda: sharded_lookup(pidx, fkp, mesh4))
+             for _ in range(3)])) * 1e3,
+        "lookup(impl='cuda')": float(np.median(
+            [timed_call(lambda: lookup(pidx, fkp, impl="cuda"))
+             for _ in range(3)])) * 1e3}
+    del want_pr, got_pr, f
+    log(f"[agree] 6f sharded_lookup(part index, {fkp.shape[0]} FKs, 4 "
+        f"shards) equals lookup(impl='cuda') (probe_rows) on found and on "
+        f"payload where found")
+
+    # 3. an append of a row count 4 does not divide, every dim cached
+    n_app = int(n_open * APPEND_FRAC) + 1
+    n_app += n_app % 4 == 0
+
+    def append_all(batch, label):
+        """``batch`` into the sharded, default and torch engines, each
+        timed; the sharded append launches no kernel and extends every
+        cached dimension per shard."""
+        out = {}
+
+        def run_sh():
+            out["report"] = sh.append_fact_rows(batch)
+
+        ms, got = counted6f(lambda: timed_call(run_sh) * 1e3)
+        check_counts(got, _ZERO, f"6f append ({label})", quiet=True)
+        append_6f.setdefault("4 shards", []).append(ms)
+        append_6f.setdefault("default", []).append(
+            timed_call(lambda: oracle.append_fact_rows(batch)) * 1e3)
+        append_6f.setdefault("unsharded torch", []).append(
+            timed_call(lambda: tw.append_fact_rows(batch)) * 1e3)
+        rep = out["report"]
+        if rep["dims"] != {d: "extended" for d in DIM_PK}:
+            raise AssertionError(f"6f append ({label}): {rep['dims']}")
+        return rep
+
+    for e in (sh, oracle, tw):
+        e.warm_cache()
+    rep = append_all(generate_fact_batch(oracle.tables, n_app, rng),
+                     "every dimension cached")
+    info = sh.shard_info()
+    if info["dead_rows"] <= 0 or info["live_rows"] != \
+            oracle.tables["lineorder"].n_rows:
+        raise AssertionError(f"6f after the append: {info}")
+    start, per, n = sh._windows[-1]
+    dead = [(i // per, start + i % per) for i in range(n, 4 * per)]
+    for dim, (found, _) in sh._probe_cache.items():
+        reg = found.view(4, -1)
+        if bool(reg[:, sh._shard_valid:].any()) or \
+                any(bool(reg[r, c]) for r, c in dead):
+            raise AssertionError(f"6f: a dead or padding row of {dim} is "
+                                 "found")
+    log(f"[shard] append of {n_app} rows: {json.dumps(rep)}; "
+        f"{json.dumps(info)}; no dead row ({len(dead)}) is found")
+    want = answers(oracle)
+    suites(sh, "4 shards, after the append", want)
+
+    # 4. dimension mutations with a live delta, then compact("part")
+    for dim in ("part", "customer"):
+        pk = oracle.tables[dim][DIM_PK[dim]].cpu().numpy()
+        k = max(1, int(pk.shape[0] * MUTATION_FRAC))
+        dels = rng.choice(pk, k, replace=False).astype(np.int32)
+        ups = rng.choice(pk, k, replace=False).astype(np.int32)
+        pays = rng.integers(0, pk.shape[0], k, dtype=np.int32)
+        for e in (sh, oracle, tw):
+            e.ingest(dim, dels, op="delete", auto_compact=False)
+            e.ingest(dim, ups, pays, op="upsert", auto_compact=False)
+    want = answers(oracle)
+    suites(sh, "4 shards, live deltas", want)
+    for e in (sh, oracle, tw):
+        e.compact("part")
+    want = answers(oracle)
+    suites(sh, "4 shards, part compacted", want)
+    log(f"[agree] 6f: after the append, the part/customer deletes and "
+        f"upserts and compact('part'), the 4-shard answers equal the "
+        f"oracle's on every path")
+
+    # 5. a snapshot held across one more append; a torn publish
+    sh.warm_cache()
+    snap = sh.snapshot()
+    gen0 = sh._fact_gen
+    append_all(generate_fact_batch(oracle.tables, n_app, rng),
+               "under a snapshot")
+    snap_res = {}
+    snap_res["cached"], got = counted6f(
+        lambda: snap.run_all(fusion="composed"))
+    check_counts(got, _ZERO, "6f snapshot cached", quiet=True)
+    snap_res["mega"], got = counted6f(
+        lambda: {q: snap.run(q, fusion="mega") for q in names})
+    check_counts(got, expect_mega, "6f snapshot mega", quiet=True)
+    check_agree(snap_res, want, ("cached", "mega"), "6f snapshot")
+    if not bool((snap.epoch_stamps == snap.epoch).all()) or \
+            sh._fact_gen == gen0:
+        raise AssertionError("6f snapshot: stamps or pin")
+    want = answers(oracle)
+    check_agree({"cached": answers(sh)}, want, ("cached",), "6f head")
+    sh._epoch_stamps = sh._epoch_stamps + 1  # a torn publish
+    try:
+        sh.snapshot()
+    except RuntimeError as e:
+        if "mixed-epoch" not in str(e):
+            raise
+    else:
+        raise AssertionError("6f: a mixed-epoch image froze")
+    sh._wal_publish()  # re-stamps every shard
+    with sh.snapshot() as s2:
+        if not bool((s2.epoch_stamps == sh.epoch).all()):
+            raise AssertionError("6f: the republish did not heal")
+    snap.release()
+    del snap, s2, snap_res
+    log(f"[agree] 6f snapshot: answers at its epoch after an append, "
+        f"stamps uniform; a torn publish refused, the republish heals")
+
+    # 6. reshard 4 -> 1 -> 2
+    def check_logical(eng, label):
+        got = eng.logical_fact_columns()
+        trimmed = oracle.tables["lineorder"].trimmed()
+        for c in trimmed.names():
+            if not np.array_equal(got[c], trimmed[c].cpu().numpy()):
+                raise AssertionError(f"6f {label}: logical {c} differs")
+
+    t = time.perf_counter()
+    sh1 = sh.reshard(make_data_mesh(1, device=dev))
+    sync()
+    reshard_s["4 -> 1"] = time.perf_counter() - t
+    del sh
+    torch.cuda.empty_cache()
+    want = reference("after the mutations")
+    suites(sh1, "1 shard, after the mutations", want)
+    check_logical(sh1, "1 shard")
+    t = time.perf_counter()
+    sh2 = sh1.reshard(make_data_mesh(2, device=dev))
+    sync()
+    reshard_s["1 -> 2"] = time.perf_counter() - t
+    del sh1
+    torch.cuda.empty_cache()
+    check_agree({"cached": answers(sh2)}, want, ("cached",), "6f 2 shards")
+    check_logical(sh2, "2 shards")
+    info2 = sh2.shard_info()
+    del sh2
+    log(f"[agree] 6f reshard 4 -> 1 -> 2: answers and logical fact "
+        f"columns equal the oracle's; 2 shards: {json.dumps(info2)}")
+    peak_6f = torch.cuda.max_memory_allocated()
+    del oracle, tw, o_tables, t_tables, pidx, fkp
+    torch.cuda.empty_cache()
+    secs_6f = time.perf_counter() - t_6f
+
+    # [shard] lines
+    for label, w in walls_6f.items():
+        log(f"[shard] {smi}: {label}: cached run_all {w['cached']:.3f} ms, "
+            f"cold {w['cold']:.3f} ms, mega {w['mega']:.3f} ms (13 "
+            f"queries over {w['physical']} physical rows, host clock "
+            f"ending in synchronize)")
+    for label, ms in append_6f.items():
+        log(f"[shard] {smi}: append_fact_rows of {n_app} rows, {label}: "
+            f"{json.dumps([round(x, 3) for x in ms])} ms")
+    log(f"[shard] {smi}: {fkp_n} part probes, median of 3 (host clock "
+        f"ending in synchronize): "
+        + ", ".join(f"{k} {v:.3f} ms" for k, v in lookup_ms.items()))
+    log(f"[shard] {smi}: reshard "
+        + ", ".join(f"{k} {v:.3f} s" for k, v in reshard_s.items()))
+    log(f"[memory] phase 6f: resident at its start {resident_6f} bytes, "
+        f"peak allocated over it {peak_6f} bytes "
+        f"({peak_6f / 2**30:.3f} GiB)")
+    log(f"[launches] phase 6f, checked calls (the sharded and unsharded "
+        f"torch engines' suites, the snapshot's, the sharded appends, one "
+        f"sharded_lookup and one lookup(impl='cuda'); not the oracle's "
+        f"suites and appends nor the timing repeats): "
+        f"{json.dumps(launches_6f)}")
+    log(f"[6f] sharded fact engine: {secs_6f:.1f} s")
 
     # -- 7. skew path ---------------------------------------------------------------
     dev = engine.device

@@ -24,8 +24,8 @@ stream); a ``bfloat16`` leaf is stored as its ``uint16`` view and
 restored as a ``torch.bfloat16`` tensor.  ``np.save``, ``os.fsync`` and
 ``os.replace`` are reached through the module names ``np`` and ``os``, so
 ``durability.faults.checkpoint_crash_sites`` can report them as crash
-sites.  Elastic re-placement onto a device mesh (``restore(...,
-shardings=)``) comes with the sharded engine.
+sites.  ``restore(..., shardings=)`` places leaves on a shard mesh
+(``launch/mesh.py:Placement``), the reference's elastic re-placement.
 """
 from __future__ import annotations
 
@@ -67,6 +67,23 @@ def _unflatten(template, leaves):
     if isinstance(template, (list, tuple)):
         return type(template)(_unflatten(v, leaves) for v in template)
     return next(leaves)
+
+
+def _placements(template, shardings) -> list:
+    """One placement (or ``None``) per leaf of ``template``, in leaf
+    order: ``shardings`` follows ``template``'s structure down to its
+    leaves, and a ``None`` node leaves every leaf below it unplaced."""
+    if template is None:
+        return []
+    if isinstance(template, dict):
+        return [p for k in sorted(template)
+                for p in _placements(template[k], None if shardings is None
+                                     else shardings[k])]
+    if isinstance(template, (list, tuple)):
+        return [p for i, v in enumerate(template)
+                for p in _placements(v, None if shardings is None
+                                     else shardings[i])]
+    return [shardings]
 
 
 def _to_host(leaf) -> tuple[np.ndarray, str]:
@@ -214,22 +231,25 @@ def restore(ckpt_dir: str, step: int, template, device=None,
     """Restore into the structure of ``template`` (a tree of tensors).
 
     Each leaf lands on ``device``, or where its template leaf lives when
-    ``device`` is None.  Leaf CRCs are verified when the manifest carries
-    them (``verify=True``); a mismatch raises
-    :class:`CheckpointCorruptError` naming the corrupt leaf.
+    ``device`` is None.  ``shardings`` (elastic placement) is a tree
+    matching ``template`` whose leaves are ``None`` or a
+    ``launch.mesh.Placement(mesh, spec)``: a placed leaf lands on
+    ``mesh.device`` with its logical shape (on the one-device region mesh
+    a sharded and a replicated leaf hold the same tensor, so a dimension
+    its axis does not divide needs no clamp); a spec naming an axis the
+    mesh lacks raises ``KeyError``.  Leaf CRCs are
+    verified when the manifest carries them (``verify=True``); a mismatch
+    raises :class:`CheckpointCorruptError` naming the corrupt leaf.
     """
-    if shardings is not None:
-        raise NotImplementedError(
-            "elastic re-placement (shardings=) comes with the sharded "
-            "engine (ROADMAP Queue 1 item 7)")
     d = os.path.join(ckpt_dir, f"step_{step:08d}")
     manifest = _read_manifest(d, step)
     leaves = _flatten(template)
     assert len(leaves) == len(manifest["leaves"]), (
         f"checkpoint has {len(manifest['leaves'])} leaves, template "
         f"{len(leaves)}: structure mismatch")
+    places = _placements(template, shardings)
     out = []
-    for entry, (_, tmpl) in zip(manifest["leaves"], leaves):
+    for entry, (_, tmpl), place in zip(manifest["leaves"], leaves, places):
         arr = _load_leaf(d, entry, verify)
         assert list(arr.shape) == list(tmpl.shape), (
             entry["path"], arr.shape, tmpl.shape)
@@ -237,8 +257,18 @@ def restore(ckpt_dir: str, step: int, template, device=None,
             t = torch.from_numpy(arr.view(np.int16)).view(torch.bfloat16)
         else:
             t = torch.from_numpy(arr)
-        dev = device if device is not None else getattr(tmpl, "device",
-                                                        "cpu")
+        if place is not None:
+            unknown = [a for e in place.spec if e is not None
+                       for a in (e if isinstance(e, tuple) else (e,))
+                       if a not in place.mesh.axis_names]
+            if unknown:
+                raise KeyError(f"{entry['path']}: spec {place.spec} names "
+                               f"axes {unknown} not in the mesh's "
+                               f"{place.mesh.axis_names}")
+            dev = place.mesh.device
+        else:
+            dev = device if device is not None else getattr(tmpl, "device",
+                                                            "cpu")
         out.append(t.to(dev))
     return _unflatten(template, iter(out))
 

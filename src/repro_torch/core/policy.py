@@ -61,6 +61,44 @@ class ExecutionPolicy:
             check_value(field, getattr(self, field))
 
 
+# The sharded engine's policy subspace (``engine/shard.py``): the reference's,
+# with ``"torch"`` for its ``("xla",)``.  Its probes run per shard region on
+# the plain gather math, and the schedules that rank hot keys over the whole
+# FK column are out.
+SHARDED_KERNELS = ("torch",)
+SHARDED_SCHEDULES = ("auto", "gathered", "deduped")
+
+
+def validate_sharded(policy: ExecutionPolicy) -> ExecutionPolicy:
+    """Reject policy knobs the sharded fact engine cannot honor.
+
+    Raised at engine construction: the sharded engine is jspim-only (the
+    baseline and pid join families materialize the fact column on one
+    host), runs its probes on ``kernel="torch"`` only, and plans
+    shard-local schedules without the hot-key ranking pass
+    (``SHARDED_SCHEDULES``).  The kernel limit is parity with the
+    reference's XLA-only subspace, not a limit of the region layout: a
+    region is a contiguous slice of one tensor on one device, which the
+    hand-written probes could take (ROADMAP, Queue 1).
+    """
+    if policy.mode != "jspim":
+        raise ValueError(
+            f"sharded engine requires mode='jspim', got {policy.mode!r} "
+            "(baseline/pid joins materialize the fact column on one host)")
+    if policy.kernel not in SHARDED_KERNELS:
+        raise ValueError(
+            f"sharded engine requires kernel in {SHARDED_KERNELS}, got "
+            f"{policy.kernel!r} (parity with the reference's XLA-only "
+            "sharded subspace; the hand-written kernels per shard region "
+            "are a ROADMAP Queue 1 item)")
+    if policy.schedule not in SHARDED_SCHEDULES:
+        raise ValueError(
+            f"sharded engine requires schedule in {SHARDED_SCHEDULES}, "
+            f"got {policy.schedule!r} (hot-key ranking would pull the "
+            "sharded FK column back to the host)")
+    return policy
+
+
 def resolve_policy(policy: ExecutionPolicy | None = None, *,
                    mode: str | None = None,
                    probe_impl: str | None = None,

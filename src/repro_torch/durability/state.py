@@ -64,7 +64,8 @@ def engine_state(src) -> tuple[dict, dict]:
     ``src`` is an ``SSBEngine`` or a live ``EpochSnapshot``: both expose
     ``tables`` / ``indexes`` / ``epoch`` / ``fact_epoch`` / ``mode``.  The
     tree's leaves are views of ``src``'s tensors (the fact columns sliced
-    to the logical rows), not copies.
+    to the logical rows, a prefix), not copies.  A sharded engine's live
+    rows are a prefix only at 1 shard, so its ``persist`` refuses more.
     """
     tree: dict = {"tables": {}, "indexes": {}}
     for name, t in src.tables.items():

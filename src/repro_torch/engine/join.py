@@ -1,9 +1,9 @@
 """JSPIM join integration for the column-store engine.
 
-PyTorch port of ``repro.engine.join`` without the sharded probe.  A
-``DimIndex`` is the paper's persistent auxiliary structure: dictionary +
-hash table + duplication list, built once per (dimension table, key
-column) and maintained across queries (§3.2.3):
+PyTorch port of ``repro.engine.join``.  A ``DimIndex`` is the paper's
+persistent auxiliary structure: dictionary + hash table + duplication
+list, built once per (dimension table, key column) and maintained across
+queries (§3.2.3):
 ``ingest_index`` buffers ops in a delta side-table, probes overlay it, and
 ``compact_index`` folds it back.  Probes run through the hand-written CUDA
 kernels (``impl="cuda"``; their plain versions on CPU tensors) or the
@@ -21,6 +21,12 @@ probe-schedule planner.  ``lookup`` runs every schedule: gathered,
 stream, deduped and hot/cold (``plan=`` and ``hot_codes=``).
 ``tail_lookup`` and ``extend_cached_probe`` probe only an appended fact
 tail, under the same plan, and splice it into a cached probe.
+
+The sharded probes (``sharded_probe_program``, ``sharded_extend_program``,
+``sharded_lookup``) run over a fact column laid out as the equal regions
+of a ``ShardMesh`` (``launch/mesh.py``): one probe per region with the
+index shared, as each rank of the reference probes its own shard.  They
+are plain functions (eager execution caches no programs).
 """
 from __future__ import annotations
 
@@ -36,7 +42,7 @@ from repro_torch.core.delta import (TOMBSTONE, DeltaTable, apply_batch,
 from repro_torch.core.dictionary import (NO_CODE, Dictionary,
                                          build_dictionary, encode, encode_np,
                                          extend_dictionary)
-from repro_torch.core.hash_table import (JSPIMTable, build_table,
+from repro_torch.core.hash_table import (EMPTY_KEY, JSPIMTable, build_table,
                                          suggest_num_buckets, table_entries)
 from repro_torch.core.lookup import (JoinResult, ProbeResult,
                                      build_hot_table, join, overlay_delta,
@@ -387,6 +393,114 @@ def extend_cached_probe(index: DimIndex, found: torch.Tensor,
     the cached tensors are written in place; otherwise copies are."""
     tf, tr = tail_lookup(index, tail_keys, hot_codes, impl=impl, plan=plan)
     return splice_probe((found, row), (tf, tr), start, owned=owned)
+
+
+# ---------------------------------------------------------------------------
+# Sharded probes: one region of the fact column per shard (launch/mesh.py)
+# ---------------------------------------------------------------------------
+
+
+def _regions(x: torch.Tensor, ndev: int) -> torch.Tensor:
+    if x.shape[0] % ndev:
+        raise ValueError(f"a column of {x.shape[0]} rows does not split "
+                         f"into {ndev} shard regions; pad to the shard "
+                         "multiple")
+    return x.view(ndev, -1)
+
+
+def sharded_probe_program(mesh, axis: str, plan: SchedulePlan | None,
+                          cold_cap: int):
+    """The sharded probe for one (mesh geometry, plan): a callable
+    ``(index, hot, keys) -> ProbeResult`` over a fact key column of
+    ``mesh.shape[axis]`` equal regions.
+
+    Each region is one ``lookup`` in turn, on the plain gather math
+    (``SHARDED_KERNELS``): the gathered probe, ``deduped`` or, for a
+    ``hot_cold`` plan, ``cold_cap`` cold slots per shard with the hot
+    table built from ``hot``, then the delta overlay.  The shard boundary
+    is hardened against the ``EMPTY_KEY`` sentinel *after* the overlay:
+    padding lanes and the sharded engine's dead filler rows leave
+    ``found`` even when a poisoned dictionary or delta entry carries the
+    sentinel.  The payload is ``-1`` on misses, the engine's cached-probe
+    form.
+    """
+    ndev = int(mesh.shape[axis])
+    if plan is not None:
+        plan = dataclasses.replace(plan, cold_capacity=cold_cap)
+
+    def run(idx: DimIndex, hot: torch.Tensor | None,
+            keys: torch.Tensor) -> ProbeResult:
+        m, dev = keys.shape[0], keys.device
+        out = ProbeResult(torch.empty(m, dtype=torch.bool, device=dev),
+                          torch.empty(m, dtype=torch.int32, device=dev),
+                          torch.empty(m, dtype=torch.bool, device=dev))
+        for r, rkeys in enumerate(_regions(keys, ndev)):
+            pr = lookup(idx, rkeys, impl="torch", plan=plan, hot_codes=hot)
+            ok = pr.found & (rkeys != EMPTY_KEY)
+            shard = (ok, torch.where(ok, pr.payload, -1), pr.is_dup & ok)
+            for dst, src in zip(out, shard):
+                dst.view(ndev, -1)[r].copy_(src)
+        return out
+
+    return run
+
+
+def sharded_extend_program(mesh, axis: str, impl: str,
+                           plan: SchedulePlan | None, donate: bool):
+    """The sharded probe-cache tail extension: a callable ``(index, hot,
+    found, row, tail_keys, start) -> (found, row)``.
+
+    ``found``/``row`` are the cached probes over the region layout and
+    ``tail_keys`` the append's ``ndev`` padded tail windows, one per
+    region.  Every region probes its own window (``tail_lookup``, delta
+    overlay included) and splices it into its slice of the cache at the
+    shard-local ``start``.  ``donate=True`` writes the cached tensors in
+    place (the engine owns them); otherwise copies are written.
+    """
+    ndev = int(mesh.shape[axis])
+
+    def run(idx: DimIndex, hot, found: torch.Tensor, row: torch.Tensor,
+            tail_keys: torch.Tensor, start: int
+            ) -> tuple[torch.Tensor, torch.Tensor]:
+        if not donate:
+            found, row = found.clone(), row.clone()
+        fr, rr = _regions(found, ndev), _regions(row, ndev)
+        for r, keys in enumerate(_regions(tail_keys, ndev)):
+            tf, tr = tail_lookup(idx, keys, hot, impl=impl, plan=plan)
+            splice_probe((fr[r], rr[r]), (tf, tr), start, owned=True)
+        return found, row
+
+    return run
+
+
+def sharded_lookup(index: DimIndex, fact_keys: torch.Tensor, mesh, *,
+                   axis: str = "data", plan: SchedulePlan | None = None,
+                   hot_codes: torch.Tensor | None = None) -> ProbeResult:
+    """Rank-parallel probe: the (small) index shared, the fact keys split
+    into ``mesh.shape[axis]`` regions.
+
+    The keys are padded to the shard multiple with ``EMPTY_KEY`` (never
+    found: the shard probe masks the sentinel out after the delta
+    overlay) and the result sliced back to their length.  With a
+    ``hot_cold`` plan, ``hot_codes`` is shared by every region and the
+    cold capacity is per shard, ``min(shard_m, plan.cold_capacity)``;
+    the per-shard overflow fallback keeps any split correct.  Misses
+    report ``payload == -1``.
+    """
+    ndev = int(mesh.shape[axis])
+    m = fact_keys.shape[0]
+    pad = (-m) % ndev
+    fk = fact_keys.to(torch.int32)
+    if pad:
+        fk = torch.cat([fk, fk.new_full((pad,), EMPTY_KEY)])
+    hot_cold = plan is not None and plan.schedule == "hot_cold"
+    shard_m = (m + pad) // ndev
+    cold_cap = min(shard_m, plan.cold_capacity) if hot_cold else 0
+    key_plan = plan if plan is not None and \
+        plan.schedule in ("deduped", "hot_cold") else None
+    prog = sharded_probe_program(mesh, axis, key_plan, cold_cap)
+    pr = prog(index, hot_codes if hot_cold else None, fk)
+    return ProbeResult(pr.found[:m], pr.payload[:m], pr.is_dup[:m])
 
 
 def join_pairs(index: DimIndex, fact_keys: torch.Tensor, *, capacity: int,

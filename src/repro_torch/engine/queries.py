@@ -1108,17 +1108,7 @@ class SSBEngine(_QueryRunner):
         re-planned for skew drift.
         """
         fact = self.tables["lineorder"]
-        missing = set(fact.names()) ^ set(rows)
-        if missing:
-            raise ValueError(f"append_fact_rows column mismatch: "
-                             f"{sorted(missing)}")
-        new_cols: dict[str, np.ndarray] = {}
-        n_new: int | None = None
-        for k in fact.names():
-            new_cols[k] = _check_batch_col(f"rows[{k!r}]", rows[k],
-                                           expect_len=n_new)
-            if n_new is None:
-                n_new = new_cols[k].shape[0]
+        new_cols, n_new = self._fact_batch(rows)
         if n_new == 0:  # strict no-op: nothing moved, nothing invalidates
             return {"appended": 0, "epoch": self._fact_epoch, "dims": {},
                     "capacity_grew": False, "skew_replanned": []}
@@ -1188,6 +1178,24 @@ class SSBEngine(_QueryRunner):
         report["skew_replanned"] = self._maybe_replan_fact_skew()
         self._wal_publish()
         return report
+
+    def _fact_batch(self, rows) -> tuple[dict[str, np.ndarray], int]:
+        """``append_fact_rows``' validated batch: every lineorder column,
+        a 1-D int32 host array each, all of one length (a bad column
+        raises ``ValueError`` naming it), and that length."""
+        names = self.tables["lineorder"].names()
+        missing = set(names) ^ set(rows)
+        if missing:
+            raise ValueError(f"append_fact_rows column mismatch: "
+                             f"{sorted(missing)}")
+        new_cols: dict[str, np.ndarray] = {}
+        n_new: int | None = None
+        for k in names:
+            new_cols[k] = _check_batch_col(f"rows[{k!r}]", rows[k],
+                                           expect_len=n_new)
+            if n_new is None:
+                n_new = new_cols[k].shape[0]
+        return new_cols, n_new
 
     def _fact_append_plan(self, dim: str, n_tail: int,
                           n_cached: int) -> FactAppendPlan:

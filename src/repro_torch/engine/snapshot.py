@@ -1,6 +1,6 @@
 """Epoch snapshots: queries at a frozen epoch while the engine advances.
 
-PyTorch port of ``repro.engine.snapshot`` without the sharded snapshot.
+PyTorch port of ``repro.engine.snapshot``.
 ``SSBEngine.snapshot()`` freezes one consistent image (dimension tables,
 dictionaries, hash tables, delta buffers, the fact table, the probe cache
 and the plans, all at the engine's current epoch) as an
@@ -26,12 +26,19 @@ while the snapshot keeps answering at its epoch:
   engine (``repro_torch.ivm.MaintainedSuite``) is fresh at the frozen
   epoch, its 13 answers are copied into ``maintained`` (host ints and
   arrays): the serving tier answers canonical queries from them.
+
+A sharded engine (``engine/shard.py``) freezes a
+:class:`ShardedEpochSnapshot`: the same image plus the mesh and the
+engine's per-shard epoch stamps, whose lazy probes run the sharded probe
+the head runs (``sharded_join``).
 """
 from __future__ import annotations
 
 import torch
 
-from repro_torch.engine.queries import DIM_PK, SSBEngine, _QueryRunner
+from repro_torch.engine.join import effective_index, sharded_probe_program
+from repro_torch.engine.queries import (DIM_PK, FACT_FK, SSBEngine,
+                                        _QueryRunner)
 
 
 class EpochSnapshot(_QueryRunner):
@@ -159,3 +166,50 @@ class EpochSnapshot(_QueryRunner):
         return {"epoch": self.epoch, "fact_epoch": self.fact_epoch,
                 "cached_dims": sorted(self._probe_cache),
                 "released": self._released}
+
+
+def sharded_join(runner: _QueryRunner, dim: str, mesh, axis: str):
+    """The sharded engine's join primitive: the sharded probe
+    (``join.sharded_probe_program``) over the region-laid fact FK column,
+    the index and its delta shared by every region.
+
+    Shared by ``ShardedSSBEngine`` and :class:`ShardedEpochSnapshot`, so
+    head and snapshot run the same probe.  Misses carry ``dim_row == -1``
+    (the cached-probe form).
+    """
+    plan = runner.plans.get(dim)
+    key_plan = plan if plan is not None and \
+        plan.schedule == "deduped" else None
+    prog = sharded_probe_program(mesh, axis, key_plan, 0)
+    fk = runner.tables["lineorder"][FACT_FK[dim]]
+    pr = prog(effective_index(runner.indexes[dim]), None, fk)
+    return pr.found, pr.payload
+
+
+class ShardedEpochSnapshot(EpochSnapshot):
+    """An :class:`EpochSnapshot` of a sharded engine.
+
+    The freeze is the same zero-copy aliasing under the same pins, plus
+    the mesh and the engine's per-shard epoch stamps, taken *after* the
+    engine checked that they are uniform (``ShardedSSBEngine.snapshot``):
+    no shard of this image serves another epoch.  Lazy probes of
+    dimensions the engine had not cached run the head's sharded probe, so
+    they equal what the engine would have served at this epoch.
+    """
+
+    def __init__(self, engine):
+        super().__init__(engine)
+        self.mesh = engine.mesh
+        self.axis = engine.axis
+        # the (ndev,) int32 stamps at the freeze; the engine publishes a
+        # new tensor at every epoch and never writes this one
+        self.epoch_stamps = engine._epoch_stamps
+
+    def _join(self, dim: str, dim_mask: torch.Tensor | None = None, *,
+              eager: bool = False) -> tuple[torch.Tensor, torch.Tensor]:
+        return sharded_join(self, dim, self.mesh, self.axis)
+
+    def cache_info(self) -> dict:
+        info = super().cache_info()
+        info["shards"] = int(self.mesh.shape[self.axis])
+        return info

@@ -5,8 +5,9 @@ draws in the same order, so the same ``sf``/``seed`` gives byte-identical
 arrays.  Integer-coded columns; row counts follow the paper's linear
 scaling: lineorder 6,000,000×SF; customer 30,000×SF; supplier 2,000×SF;
 part 200,000×SF; date 2,556 (7 years of days, fixed).
-``generate_fact_batch`` draws one lineorder append batch, and
-``random_mutation`` the mutation stream the differential tests replay.
+``stream_ssb_fact`` yields the fact table in chunks (the sharded engine's
+streamed open), ``generate_fact_batch`` draws one lineorder append batch,
+and ``random_mutation`` the mutation stream the differential tests replay.
 """
 from __future__ import annotations
 
@@ -138,12 +139,36 @@ def generate_ssb_dims(sf: float, seed: int = 0,
     return {name: Table.from_numpy(cols, dev) for name, cols in dims.items()}
 
 
+def stream_ssb_fact(sf: float, seed: int = 0, *,
+                    chunk_rows: int = 1 << 20):
+    """Yield the SF-``sf`` lineorder table as append-ready host chunks.
+
+    Never materializes the full fact table: chunk ``i`` draws from its own
+    rng (``default_rng((seed, i))``), so the stream is fully determined by
+    ``(sf, seed, chunk_rows)``, equals the JAX package's chunk for chunk,
+    and any consumer sees the same rows.  It is a different sample than
+    ``generate_ssb``'s single-draw fact table.  Chunks are numpy dicts:
+    the consumer picks the device.
+    """
+    n_lo = ssb_sizes(sf)["lineorder"]
+    start = 0
+    i = 0
+    while start < n_lo:
+        n = min(int(chunk_rows), n_lo - start)
+        rng = np.random.default_rng((seed, i))
+        yield _gen_fact(rng, n, sf, start_key=start)
+        start += n
+        i += 1
+
+
 def generate_fact_batch(tables, n: int,
                         rng: np.random.Generator) -> dict[str, np.ndarray]:
     """One lineorder append batch against the current tables, with the
     JAX package's draws: FK columns re-sample live fact rows (keeping the
     generated skew), measures are drawn fresh.  The sampled rows are
-    gathered where the table lives; only the batch crosses to the host."""
+    gathered where the table lives; only the batch crosses to the host.
+    It samples the first ``n_rows`` rows, so draw from an unsharded
+    engine's tables: a sharded engine's live rows are not a prefix."""
     fact = tables["lineorder"]
     idx = rng.integers(0, fact.n_rows, n)
     sel = torch.as_tensor(idx, device=fact.device)

@@ -249,7 +249,9 @@ class MaintainedSuite:
     def _init_state(self) -> None:
         eng = self._engine
         fact = eng.tables["lineorder"]
-        n = fact.n_rows  # logical rows only: capacity padding never joins
+        # logical rows only (a prefix: capacity padding never joins; a
+        # sharded engine refuses the attach at more than 1 shard)
+        n = fact.n_rows
         self._fact = {k: _Grow(_np(fact[k][:n])) for k in fact.names()}
         self._n = n
         self._dims, self._dim_n, self._km = {}, {}, {}

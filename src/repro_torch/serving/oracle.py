@@ -36,7 +36,10 @@ class NumpyTable:
 
 
 def _host(table) -> dict[str, np.ndarray]:
-    """The logical rows of a port ``Table`` as host numpy copies."""
+    """The logical rows of a port ``Table`` as host numpy copies: its
+    first ``n_rows`` rows.  A sharded engine's fact table is not such a
+    prefix (``engine/shard.py``): model it from a table of its
+    ``logical_fact_columns()``."""
     n = table.n_rows
     return {k: (v[:n].cpu().numpy() if torch.is_tensor(v)
                 else np.asarray(v)[:n]).copy()

@@ -45,6 +45,7 @@ from repro_torch.durability.manager import CKPT_SUBDIR, WAL_NAME
 from repro_torch.durability.wal import MAGIC, WALError, encode_record
 from repro_torch.engine import SSBEngine, generate_ssb
 from repro_torch.engine.queries import DIM_PK, SSB_QUERIES
+from repro_torch.launch import Placement, make_data_mesh
 
 SF = 0.001
 SEED = 7
@@ -308,8 +309,15 @@ class TestCheckpointCrashAtomicity:
         assert torch.equal(out["a"], tree["a"])
         assert out["c"].dtype == torch.bfloat16
         assert torch.equal(out["c"], tree["c"])
-        with pytest.raises(NotImplementedError, match="item 7"):
-            restore(ck, 3, _tree(1), shardings={"a": None})
+        # elastic placement (no longer refused): a placed leaf lands on
+        # its mesh's device with its values
+        m2 = make_data_mesh(2, device="cpu")
+        placed = restore(ck, 3, dict(_tree(1), c=torch.zeros(
+            6, dtype=torch.bfloat16)), shardings={
+                "a": Placement(m2, ("data",)), "b": None, "c": None})
+        assert placed["a"].device == m2.device
+        assert torch.equal(placed["a"], tree["a"])
+        assert torch.equal(placed["c"], tree["c"])
 
     def test_corrupt_leaf_names_the_leaf(self, tmp_path):
         ck = str(tmp_path)

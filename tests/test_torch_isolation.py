@@ -39,7 +39,7 @@ class Block:
 sys.meta_path.insert(0, Block())
 import repro_torch, repro_torch.core, repro_torch.kernels, repro_torch.engine
 import repro_torch.durability, repro_torch.serving, repro_torch.checkpoint
-import repro_torch.ivm, repro_torch.configs
+import repro_torch.ivm, repro_torch.configs, repro_torch.launch
 from repro_torch.configs import SSB_PIM
 from repro_torch.core.costmodel import Workload, jspim_join_seconds
 from repro_torch.engine import SSBEngine, generate_ssb
@@ -72,6 +72,20 @@ engine.close()
 recovered = SSBEngine.open(root, device="cpu")
 assert recovered.epoch == engine.epoch
 recovered.close()
+from repro_torch.engine import ShardedSSBEngine
+from repro_torch.launch import make_data_mesh
+import torch
+batch = generate_fact_batch(generate_ssb(0.0001, device="cpu"), 7,
+                            np.random.default_rng(2))
+sharded = ShardedSSBEngine(generate_ssb(0.0001, device="cpu"),
+                           mesh=make_data_mesh(2, device="cpu"))
+sharded.append_fact_rows(batch)
+assert sharded.shard_info()["dead_rows"] == 1
+plain = SSBEngine(generate_ssb(0.0001, device="cpu"), device="cpu")
+plain.append_fact_rows(batch)
+got, want = sharded.run_all(), plain.run_all()
+assert sorted(got) == sorted(want)
+assert all(torch.equal(a, b) for q in want for a, b in zip(got[q], want[q]))
 assert not any(m.split(".")[0] in ("jax", "jaxlib", "repro")
                for m in sys.modules)
 """
