@@ -192,6 +192,29 @@ Phases (each raises on failure; nothing is caught):
    suites' ms per path at 4 and 1 shards beside the unsharded torch and
    default engines, the appends' ms, the lookups' ms, the reshards'
    seconds, the phase's peak memory and seconds.
+6g. LM serving (seed+7), run last, after 7b and the ``[ops]`` timing, with
+   every engine of the earlier phases freed: ``init_params`` on the card
+   from the seed, Zipf(1.0) prompts over the vocabulary
+   (``core.skew.zipf_sample``), ``Server(batch=8, max_seq=512,
+   page_size=256).generate`` for qwen3-4b at its published config (64
+   steps), mamba2-780m (128 steps) and jamba-v0.1-52b at published widths
+   and one pattern repeat (8 of 32 layers; 128 steps), bf16, prompts of
+   256.  Gates: the first token is a separate ``prefill``'s argmax;
+   ``prefill`` with ``dedup_embed`` on and off is bit-identical, logits
+   and caches; every allocated page resolves through ``PageTable.lookup``
+   to its physical page and a freed sequence misses; the last decode
+   step's logits lie no farther from a float32 prefill of prompt and
+   generated tokens (the same weights cast up) than twice the bf16
+   fresh prefill's distance plus 2^-8, and give its argmax wherever the
+   top-2 margin clears twice the error; on those float32 weights, a
+   decode of the same tokens from a float32 prefill of the prompt meets
+   the fresh float32 prefill within atol 2e-2, rtol 1e-3.  (An MoE decode
+   step of 8 tokens drops no assignment; these prefills run at the
+   capacity factor that drops none either.)  Then the ten ``smoke()`` configs
+   in float32: a 4-step ``generate`` and the decode replay of 16 prompt
+   tokens against ``prefill`` (atol 2e-2, rtol 1e-3).  No JSPIM kernel
+   may launch.  ``[lm]``: init s, prefill ms, median and p90 ms a decode
+   step (CUDA events around each step), tokens/s, page lookup ms, peak.
 7. Skew path (the JAX package's ``benchmarks/skew_sweep.py`` at SSB SF10
    sizes): a 2,000,000-key dimension with part's geometry, probed by
    60,000,000 Zipf(s) keys for s in the paper's grid {0, 0.5, 1.5, 2}.
@@ -234,6 +257,7 @@ from __future__ import annotations
 
 import argparse
 import dataclasses
+import gc
 import json
 import os
 from fractions import Fraction
@@ -331,6 +355,239 @@ CALIB_OPS = 2000
 PICK_SLACK = 1.10
 # phase 6d: sampled parameter vectors per query beside the canonical one
 IVM_SAMPLED = 7
+
+
+# phase 6g (LM serving): the full configs served on the card, and how each
+# is cut: (arch, repeats of its pattern kept or None for all, batch, prompt
+# length, decode steps).  A model with Mamba layers decodes 128 steps: its
+# fresh prefill of prompt + generated tokens must be a whole number of SSD
+# chunks (128), as the reference's ``ssd_scan`` requires.
+LM_MODELS = (("qwen3-4b", None, 8, 256, 64),
+             ("mamba2-780m", None, 8, 256, 128),
+             ("jamba-v0.1-52b", 1, 8, 256, 128))
+LM_MAX_SEQ = 512
+LM_PAGE = 256
+LM_ZIPF_S = 1.0      # token frequencies of natural text: Zipf, s ~ 1
+# decode against prefill in float32 (the smoke configs, and the full ones
+# cast up): the reference test's tolerance (tests/test_models_smoke.py)
+LM_F32_TOL = dict(atol=2e-2, rtol=1e-3)
+
+
+def lm_serving(seed: int, smi: str, dev) -> dict:
+    """Phase 6g: the LM serving path of the port on the card ``dev`` (see
+    the module docstring).  Raises on a failed gate; returns the numbers."""
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import get_config, list_archs, smoke
+    from repro_torch.core.skew import zipf_sample
+    from repro_torch.models import decode_step, init_caches, init_params
+    from repro_torch.models import prefill
+    from repro_torch.models.moe import _capacity as moe_capacity
+    from repro_torch.serve import Server
+
+    if torch.backends.cuda.matmul.allow_tf32:
+        raise AssertionError("float32 products must not run in TF32")
+
+    def sync():
+        torch.cuda.synchronize()
+
+    def host_s(fn):
+        sync()
+        t = time.perf_counter()
+        out = fn()
+        sync()
+        return out, time.perf_counter() - t
+
+    def same(a, b) -> bool:
+        if isinstance(a, torch.Tensor):
+            return torch.equal(a, b)
+        return all(same(x, y) for x, y in zip(a, b))
+
+    out = {}
+    for arch, repeats, batch, plen, steps in LM_MODELS:
+        cfg = get_config(arch)
+        if repeats is not None:
+            cfg = dataclasses.replace(
+                cfg, n_layers=repeats * len(cfg.pattern))
+        torch.cuda.reset_peak_memory_stats()
+        resident = torch.cuda.memory_allocated()
+        params, init_s = host_s(lambda: init_params(cfg, seed=seed,
+                                                    device=dev))
+        n_params = sum(p.numel() for p in params.parameters())
+        toks = zipf_sample(cfg.vocab_size, batch * plen, LM_ZIPF_S,
+                           seed=seed)
+        dup = toks.size / np.unique(toks).size
+        prompts = torch.from_numpy(toks.reshape(batch, plen)).to(dev)
+        # a short warm-up generation and page lookup (the first use of a
+        # kernel loads its module), then the measured ones
+        warm = Server(cfg, params, LM_MAX_SEQ, batch, LM_PAGE, device=dev)
+        warm.generate(prompts, 2)
+        warm.pages.lookup(torch.arange(batch), torch.zeros(batch))
+        del warm
+        srv = Server(cfg, params, LM_MAX_SEQ, batch, LM_PAGE, device=dev)
+        step_fn, events, last = srv.serve_step, [], {}
+
+        def timed_step(p, caches, tok, pos, step_fn=step_fn, events=events,
+                       last=last):
+            ev = (torch.cuda.Event(enable_timing=True),
+                  torch.cuda.Event(enable_timing=True))
+            ev[0].record()
+            logits, caches = step_fn(p, caches, tok, pos)
+            ev[1].record()
+            events.append(ev)
+            last["logits"] = logits
+            return logits, caches
+        srv.serve_step = timed_step
+        res, gen_s = host_s(lambda: srv.generate(prompts, steps))
+        step_ms = np.array([a.elapsed_time(b) for a, b in events])
+        # gate: the first token is prefill's argmax
+        (logits_p, caches_p), prefill_s = host_s(
+            lambda: prefill(cfg, params, prompts, max_seq=LM_MAX_SEQ))
+        if not torch.equal(res.tokens[:, 0], logits_p.argmax(-1)):
+            raise AssertionError(f"{arch}: the first token is not prefill's "
+                                 "argmax")
+        peak = torch.cuda.max_memory_allocated() - resident
+        # gate: the dedup embedding is an exact rewrite
+        logits_nd, caches_nd = prefill(
+            dataclasses.replace(cfg, dedup_embed=False), params, prompts,
+            max_seq=LM_MAX_SEQ)
+        if not (torch.equal(logits_nd, logits_p) and
+                same(caches_nd, caches_p)):
+            raise AssertionError(f"{arch}: dedup_embed on and off differ")
+        del caches_p, caches_nd, logits_nd
+        # gate: every allocated page resolves, a freed sequence misses
+        keys = sorted(srv.pages._map)
+        mp = srv.pages.max_pages_per_seq
+        seqs = torch.tensor([k // mp for k in keys])
+        pages = torch.tensor([k % mp for k in keys])
+        (found, phys), look_dirty_s = host_s(
+            lambda: srv.pages.lookup(seqs, pages))
+        _, look_s = host_s(lambda: srv.pages.lookup(seqs, pages))
+        if not (bool(found.all()) and phys.tolist() ==
+                [srv.pages._map[k] for k in keys]):
+            raise AssertionError(f"{arch}: a page does not resolve")
+        n_pages = len(keys)
+        srv.pages.free_seq(0)
+        found, _ = srv.pages.lookup(seqs, pages)
+        if found.tolist() != [bool(s) for s in seqs.tolist()]:
+            raise AssertionError(f"{arch}: a freed page resolves")
+        # gate: decode through the cache against a fresh prefill of the
+        # prompt and the generated tokens, both held against the float32
+        # result on the same weights.  A decode step of B tokens never
+        # drops an MoE assignment (an expert takes at most one per token,
+        # capacity >= B); the prefills run at the capacity factor that
+        # drops none either (E / top_k), so all three compute one function
+        same_fn = cfg
+        if cfg.moe is not None:
+            if moe_capacity(batch, cfg.moe) < batch:
+                raise AssertionError(f"{arch}: a decode step could drop")
+            same_fn = dataclasses.replace(cfg, moe=dataclasses.replace(
+                cfg.moe,
+                capacity_factor=cfg.moe.num_experts / cfg.moe.top_k))
+        seq = torch.cat([prompts, res.tokens], dim=1)
+        fresh = prefill(same_fn, params, seq)[0]
+        dec = last["logits"]
+        del srv
+        torch.cuda.empty_cache()
+        params.float()      # in place, a leaf at a time
+        cfg32 = dataclasses.replace(same_fn, dtype="float32")
+        truth = prefill(cfg32, params, seq)[0]
+        # gate: in float32 too, decode through the cache replays the
+        # generated tokens to the fresh prefill's logits
+        caches = prefill(cfg32, params, prompts, max_seq=LM_MAX_SEQ)[1]
+        for i in range(steps):
+            lg32, caches = decode_step(cfg32, params, caches,
+                                       res.tokens[:, i:i + 1], plen + i)
+        del caches, params
+        torch.cuda.empty_cache()
+        torch.testing.assert_close(lg32, truth, **LM_F32_TOL)
+        e32 = float((lg32 - truth).abs().max())
+        peak_checks = torch.cuda.max_memory_allocated() - resident
+        e_pre = float((fresh - truth).abs().max())
+        e_dec = float((dec - truth).abs().max())
+        d_dp = float((dec - fresh).abs().max())
+        bound = 2 * e_pre + 2 ** -8
+        top2 = truth.topk(2, dim=-1).values
+        clear = (top2[:, 0] - top2[:, 1]) > 2 * max(e_pre, e_dec)
+        agree = bool((dec.argmax(-1) == truth.argmax(-1))[clear].all())
+        if e_dec > bound or not agree:
+            raise AssertionError(
+                f"{arch}: decode {e_dec} from the float32 logits, prefill "
+                f"{e_pre} (bound {bound}); argmax where clear: {agree}")
+        out[arch] = dict(
+            layers=cfg.n_layers, params=n_params, init_s=init_s,
+            prefill_ms=prefill_s * 1e3, step_ms=step_ms, gen_s=gen_s,
+            batch=batch, plen=plen, steps=steps, dup=dup,
+            look_dirty_ms=look_dirty_s * 1e3, look_ms=look_s * 1e3,
+            n_pages=n_pages, peak=peak, e_pre=e_pre, e_dec=e_dec, d_dp=d_dp,
+            e32=e32, peak_checks=peak_checks,
+            bound=bound, scale=float(truth.abs().max()),
+            clear=int(clear.sum()))
+        r = out[arch]
+        log(f"[lm] {smi}: {arch} ({cfg.n_layers} layers, {n_params} "
+            f"parameters, param_count {cfg.param_count()}, {cfg.dtype}): init {init_s:.3f} s; Zipf({LM_ZIPF_S}) "
+            f"prompts {batch}x{plen} (dup factor {dup:.3f}); prefill "
+            f"{r['prefill_ms']:.3f} ms; decode {steps} steps: median "
+            f"{np.median(step_ms):.3f} ms, p90 "
+            f"{np.percentile(step_ms, 90):.3f} ms a step (CUDA events), "
+            f"{batch / np.median(step_ms) * 1e3:.1f} tokens/s; generate "
+            f"{gen_s:.3f} s, {batch * steps / gen_s:.1f} tokens/s with its "
+            f"prefill; page table: {n_pages} pages, lookup "
+            f"{r['look_dirty_ms']:.3f} ms with its rebuild, "
+            f"{r['look_ms']:.3f} ms after; peak allocated above the "
+            f"{resident} bytes resident: serving {peak} bytes "
+            f"({peak / 2**30:.3f} GiB), with the checks below "
+            f"{peak_checks} bytes ({peak_checks / 2**30:.3f} GiB)")
+        log(f"[lm] {arch}: first token = prefill's argmax; dedup_embed on "
+            f"= off bit for bit; every page resolves, a freed sequence "
+            f"misses; last decode step against the float32 prefill: max "
+            f"|diff| {e_dec:.5f}, bf16 prefill {e_pre:.5f} (bound 2x + 2^-8 "
+            f"= {bound:.5f}), decode against bf16 prefill {d_dp:.5f}, logits "
+            f"up to {r['scale']:.3f}; argmax equal on the {r['clear']} of "
+            f"{batch} rows whose top-2 margin clears twice the error; in "
+            f"float32, {steps} decode steps against the fresh prefill: max "
+            f"|diff| {e32:.7f} (atol {LM_F32_TOL['atol']}, rtol "
+            f"{LM_F32_TOL['rtol']})")
+        del truth, fresh, dec, res, prompts, last, lg32
+        torch.cuda.empty_cache()
+
+    # the ten smoke configs, float32: a short generation and the decode
+    # replay of the prompt against prefill (xattn, the other MoEs, GeGLU)
+    t0 = time.perf_counter()
+    worst = {}
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed)
+    for arch in list_archs():
+        cfg = smoke(arch)
+        params = init_params(cfg, seed=seed, device=dev)
+        tokens = torch.randint(0, cfg.vocab_size, (2, 16), generator=gen,
+                               device=dev)
+        img = (torch.randn((2, cfg.n_image_tokens, cfg.d_model),
+                           generator=gen, device=dev)
+               if cfg.n_image_tokens else None)
+        res = Server(cfg, params, 32, 2, 8, device=dev).generate(
+            tokens, 4, image_embeds=img)
+        logits_p, pc = prefill(cfg, params, tokens, max_seq=24,
+                               image_embeds=img)
+        if not torch.equal(res.tokens[:, 0], logits_p.argmax(-1)):
+            raise AssertionError(f"smoke {arch}: first token")
+        caches = init_caches(cfg, 2, 24, cfg.n_image_tokens, device=dev)
+        caches = [p if m == "xattn" else c
+                  for (m, _), p, c in zip(cfg.pattern, pc, caches)]
+        for i in range(16):
+            lg, caches = decode_step(cfg, params, caches,
+                                     tokens[:, i:i + 1], i)
+        torch.testing.assert_close(lg, logits_p, **LM_F32_TOL)
+        worst[arch] = float((lg - logits_p).abs().max())
+    log(f"[lm] the ten smoke configs (float32): Server.generate of 4 steps, "
+        f"first token = prefill's argmax, decode replay of 16 prompt tokens "
+        f"against prefill within atol {LM_F32_TOL['atol']} / rtol "
+        f"{LM_F32_TOL['rtol']}: max |diff| "
+        f"{json.dumps({k: round(v, 7) for k, v in worst.items()})}; "
+        f"{time.perf_counter() - t0:.1f} s")
+    out["smoke"] = worst
+    return out
 
 
 def log(*parts):
@@ -2827,6 +3084,22 @@ def main() -> int:
         f"per call {json.dumps([round(x * 1e3, 4) for x in secs])}, min "
         f"{min(secs) * 1e3:.4f}")
     del tbl, codes
+
+    # -- 6g. LM serving --------------------------------------------------------
+    # last of the phases, so that every engine can be freed before it and
+    # the phases before it allocate as they did without it; ``fact`` (the
+    # grown lineorder of 6b) and ``base_6e`` (phase 4's lineorder) are the
+    # last tables still referenced
+    del engine, baseline, tables, fact_cols, sidx, fact, base_6e
+    gc.collect()
+    torch.cuda.empty_cache()
+    t_6g = time.perf_counter()
+    resident_6g = torch.cuda.memory_allocated()
+    got = counted(lambda: lm_serving(args.seed + 7, smi, dev))[1]
+    check_counts(got, _ZERO, "phase 6g (LM serving: no JSPIM kernel)")
+    log(f"[memory] phase 6g: resident at its start {resident_6g} bytes, "
+        f"after deleting the earlier phases' engines and tables")
+    log(f"[6g] LM serving: {time.perf_counter() - t_6g:.1f} s")
 
     # -- 8. numbers ---------------------------------------------------------------
     log(f"[memory] resident before the main path (tables, indexes): "

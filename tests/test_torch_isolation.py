@@ -27,14 +27,15 @@ def _imported_modules(path: Path):
 def test_no_jax_or_reference_import(path):
     for mod in _imported_modules(path):
         top = mod.split(".")[0]
-        assert top not in ("jax", "jaxlib", "repro"), f"{path}: imports {mod}"
+        assert top not in ("jax", "jaxlib", "repro", "ml_dtypes"), \
+            f"{path}: imports {mod}"
 
 
 _BLOCKED_IMPORT = r"""
 import sys
 class Block:
     def find_spec(self, name, path=None, target=None):
-        if name.split(".")[0] in ("jax", "jaxlib", "repro"):
+        if name.split(".")[0] in ("jax", "jaxlib", "repro", "ml_dtypes"):
             raise ImportError(f"blocked: {name}")
 sys.meta_path.insert(0, Block())
 import repro_torch, repro_torch.core, repro_torch.kernels, repro_torch.engine
@@ -86,7 +87,21 @@ plain.append_fact_rows(batch)
 got, want = sharded.run_all(), plain.run_all()
 assert sorted(got) == sorted(want)
 assert all(torch.equal(a, b) for q in want for a, b in zip(got[q], want[q]))
-assert not any(m.split(".")[0] in ("jax", "jaxlib", "repro")
+import repro_torch.models, repro_torch.configs, repro_torch.serve
+import repro_torch.launch.serve
+from repro_torch.configs import get_config, smoke
+from repro_torch.models import init_params, prefill
+from repro_torch.serve import Server
+cfg = smoke("jamba-v0.1-52b")
+srv = Server(cfg, init_params(cfg, device="cpu"), max_seq=32, batch=2,
+             page_size=8, device="cpu")
+prompts = torch.randint(0, cfg.vocab_size, (2, 16))
+res = srv.generate(prompts, steps=3)
+assert torch.equal(res.tokens[:, 0],
+                   prefill(cfg, srv.params, prompts)[0].argmax(-1))
+assert sum(p.numel() for p in init_params(
+    get_config("kimi-k2-1t-a32b"), device="meta").parameters()) > 1e12
+assert not any(m.split(".")[0] in ("jax", "jaxlib", "repro", "ml_dtypes")
                for m in sys.modules)
 """
 
@@ -119,6 +134,36 @@ def test_engine_without_device_raises(no_card):
     tables = generate_ssb(0.0001, device="cpu")
     with pytest.raises(RuntimeError, match="device='cpu'"):
         SSBEngine(tables)
+
+
+def test_init_params_without_device_raises(no_card):
+    from repro_torch.configs import smoke
+    from repro_torch.models import init_caches, init_params
+    cfg = smoke("qwen3-4b")
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        init_params(cfg)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        init_caches(cfg, 2, 8)
+    assert init_params(cfg, device="cpu").embed.tokens.device.type == "cpu"
+
+
+def test_server_and_page_table_without_device_raise(no_card):
+    from repro_torch.configs import smoke
+    from repro_torch.models import init_params
+    from repro_torch.serve import PageTable, Server
+    cfg = smoke("qwen3-4b")
+    params = init_params(cfg, device="cpu")
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        Server(cfg, params, max_seq=16, batch=2)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        PageTable(n_physical=4, max_pages_per_seq=2)
+    assert PageTable(4, 2, device="cpu").device.type == "cpu"
+
+
+def test_serve_cli_without_device_raises(no_card):
+    from repro_torch.launch.serve import main
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        main(["--arch", "qwen3-4b", "--smoke"])
 
 
 def test_open_without_device_raises(no_card, tmp_path):
