@@ -192,7 +192,7 @@ Phases (each raises on failure; nothing is caught):
    suites' ms per path at 4 and 1 shards beside the unsharded torch and
    default engines, the appends' ms, the lookups' ms, the reshards'
    seconds, the phase's peak memory and seconds.
-6g. LM serving (seed+7), run last, after 7b and the ``[ops]`` timing, with
+6g. LM serving (seed+7), after 7b and the ``[ops]`` timing, with
    every engine of the earlier phases freed: ``init_params`` on the card
    from the seed, Zipf(1.0) prompts over the vocabulary
    (``core.skew.zipf_sample``), ``Server(batch=8, max_seq=512,
@@ -215,6 +215,30 @@ Phases (each raises on failure; nothing is caught):
    tokens against ``prefill`` (atol 2e-2, rtol 1e-3).  No JSPIM kernel
    may launch.  ``[lm]``: init s, prefill ms, median and p90 ms a decode
    step (CUDA events around each step), tokens/s, page lookup ms, peak.
+6h. LM training (seed+8), after 6g, with no JSPIM kernel launched
+   (checked 0): qwen3-4b at its published config (bf16, float32 moments,
+   ``OptConfig`` defaults with the launcher's warmup) through
+   ``make_train_step``: 8 steps of 8x512 ``ZipfTokenStream(zipf_s=1.1)``
+   tokens in 2 microbatches, block remat; gates: every loss finite, the
+   mean of the last two below the first, the peak within the card.
+   Then, on the trained weights at all 36 layers, the bf16 gradient of
+   one microbatch against the float32 gradient on the cast-up weights
+   (cosine >= 0.99), and for qwen3-4b and mamba2-780m at published widths
+   and 2 layers, one float32 sequence of 256 tokens, the card's gradient
+   against the host CPU's (max |diff| / max |g| <= 1e-4 per leaf).  Last,
+   mamba2-780m at its published config through the ``Trainer`` (int8
+   moments, ``grad_quant_bits=8``, lr 1e-6, 12 steps of 8x512 in 2
+   microbatches, checkpoints every 4, keep 2, under a directory removed
+   at the end), under ``torch.use_deterministic_algorithms``: a run
+   crashed by ``fail_at_step=9``, a fresh ``Trainer`` resuming from step
+   8 (the restored tree equal to the saved one bit for bit, its
+   parameters finite), an uninterrupted twin with one step slowed by
+   ``time.sleep`` (the watchdog fires); the resumed losses, weights and
+   optimizer state equal the twin's bit for bit.  ``[train]``: init s,
+   ms a step by CUDA events (forward and backward per microbatch, the
+   update), tokens/s, the model-FLOPs share, peak memory against the
+   reckoning, the mamba2 run's host ms a step, save and restore s and
+   GB/s.
 7. Skew path (the JAX package's ``benchmarks/skew_sweep.py`` at SSB SF10
    sizes): a 2,000,000-key dimension with part's geometry, probed by
    60,000,000 Zipf(s) keys for s in the paper's grid {0, 0.5, 1.5, 2}.
@@ -256,6 +280,7 @@ when no CUDA device is available or the package is missing.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
 import gc
 import json
@@ -587,6 +612,469 @@ def lm_serving(seed: int, smi: str, dev) -> dict:
         f"{json.dumps({k: round(v, 7) for k, v in worst.items()})}; "
         f"{time.perf_counter() - t0:.1f} s")
     out["smoke"] = worst
+    return out
+
+
+# phase 6h (LM training): qwen3-4b's train step at its published config
+# (steps, global batch, sequence, microbatches), the gradient checks, and
+# mamba2-780m through the Trainer: a run crashed at TRAIN_FAIL_AT, a fresh
+# Trainer resuming it, an uninterrupted twin
+TRAIN_QWEN = ("qwen3-4b", 8, 8, 512, 2)
+TRAIN_MAMBA = ("mamba2-780m", 12, 8, 512, 2)
+TRAIN_CKPT_EVERY = 4
+TRAIN_FAIL_AT = 9
+TRAIN_ZIPF_S = 1.1
+# int8 moments diverge in both packages: a v block's small entries round
+# to 0 and Adam divides by eps, a step of ~1e4-1e6 x lr (ROADMAP Queue 3).
+# At this rate those steps stay small and the state finite, so that the
+# resume gate compares finite values
+TRAIN_MAMBA_LR = 1e-6
+# the gradient checks: the card's float32 gradient against the host CPU's
+# at published widths and 2 layers, one sequence of 256 tokens (max |diff|
+# over the leaf's max |g|); the bf16 gradient's cosine with the float32
+# gradient on the cast-up weights
+TRAIN_CPU_LAYERS = 2
+TRAIN_CPU_TOKENS = 256
+TRAIN_CPU_TOL = 1e-4
+TRAIN_COS_MIN = 0.99
+# H100 SXM data sheet: dense bf16 tensor-core rate (for the model-FLOPs
+# share, information only)
+BF16_FLOPS_PER_S = 989e12
+
+
+def lm_training(seed: int, smi: str, dev) -> dict:
+    """Phase 6h: the LM training path of the port on the card ``dev`` (see
+    the module docstring).  Raises on a failed gate; returns the numbers."""
+    import shutil
+    import statistics
+    import tempfile
+    import warnings
+
+    import numpy as np
+    import torch
+
+    from repro_torch.checkpoint.manager import _flatten
+    from repro_torch.configs import get_config
+    from repro_torch.data import ZipfTokenStream, shard_batch
+    from repro_torch.models import ParamTree, init_params, loss_fn
+    from repro_torch.optim import OptConfig
+    from repro_torch.optim.adamw import tree_map
+    from repro_torch.train import (Trainer, TrainerConfig, init_train_state,
+                                   make_train_step)
+    import repro_torch.train.step as step_mod
+
+    if torch.backends.cuda.matmul.allow_tf32:
+        raise AssertionError("float32 products must not run in TF32")
+
+    def sync():
+        torch.cuda.synchronize()
+
+    def host_s(fn):
+        sync()
+        t = time.perf_counter()
+        out = fn()
+        sync()
+        return out, time.perf_counter() - t
+
+    def event():
+        e = torch.cuda.Event(enable_timing=True)
+        e.record()
+        return e
+
+    def grads_of(params) -> dict:
+        return {n: (p.grad if p.grad is not None else torch.zeros_like(p))
+                for n, p in params.named_parameters()}
+
+    def backward(cfg, params, tok, lab) -> float:
+        for p in params.parameters():
+            p.grad = None
+        loss = loss_fn(cfg, params, tok, lab)
+        loss.backward()
+        return float(loss.detach())
+
+    def bits(t: torch.Tensor) -> torch.Tensor:
+        return t.detach().reshape(-1).view(torch.uint8)
+
+    @contextlib.contextmanager
+    def marking(marks: list):
+        """CUDA events at each microbatch's start and around the update,
+        recorded by the train step's own calls."""
+        orig_loss, orig_apply = step_mod.loss_fn, step_mod.apply_updates
+
+        def loss_marked(*a, **k):
+            marks.append(event())
+            return orig_loss(*a, **k)
+
+        def apply_marked(*a, **k):
+            marks.append(event())
+            res = orig_apply(*a, **k)
+            marks.append(event())
+            return res
+        step_mod.loss_fn, step_mod.apply_updates = loss_marked, apply_marked
+        try:
+            yield
+        finally:
+            step_mod.loss_fn, step_mod.apply_updates = orig_loss, orig_apply
+
+    def split(marks: list, mb: int) -> list[dict]:
+        """Per step: ms of each microbatch's forward and backward, of the
+        update, and their sum."""
+        out = []
+        for i in range(0, len(marks), mb + 2):
+            m = marks[i:i + mb + 2]
+            ms = [a.elapsed_time(z) for a, z in zip(m, m[1:])]
+            out.append({"micro_ms": ms[:mb], "update_ms": ms[mb],
+                        "ms": sum(ms)})
+        return out
+
+    out = {}
+    t_phase = time.perf_counter()
+    total_mem = torch.cuda.get_device_properties(dev).total_memory
+
+    # -- qwen3-4b: the train step at its published config ---------------------
+    arch, steps, batch, seq, mb = TRAIN_QWEN
+    cfg = get_config(arch)
+    opt = OptConfig(warmup_steps=max(2, steps // 20), total_steps=steps)
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    resident = torch.cuda.memory_allocated()
+    (params, state), init_s = host_s(
+        lambda: init_train_state(cfg, opt, seed, dev))
+    n = sum(p.numel() for p in params.parameters())
+    held = torch.cuda.memory_allocated() - resident
+    reckon = {"weights": 2 * n, "accumulator": 4 * n, "moments": 8 * n}
+    n_embed = cfg.vocab_size * cfg.d_model
+    stream = ZipfTokenStream(cfg.vocab_size, seq, zipf_s=TRAIN_ZIPF_S,
+                             seed=seed)
+    step_fn = make_train_step(cfg, opt)
+    marks: list = []
+    losses, rows = [], []
+    with marking(marks):
+        for step in range(steps):
+            b = shard_batch(stream.batch(step, batch), None, mb, device=dev)
+            marks.clear()
+            t = time.perf_counter()
+            params, state, met = step_fn(params, state, b)
+            loss = float(met["loss"])
+            wall = time.perf_counter() - t
+            rows.append(dict(split(marks, mb)[0], loss=loss,
+                             wall_ms=wall * 1e3,
+                             grad_norm=float(met["grad_norm"]),
+                             lr=float(met["lr"])))
+            losses.append(loss)
+    peak = torch.cuda.max_memory_allocated() - resident
+    if not all(np.isfinite(losses)):
+        raise AssertionError(f"{arch}: a loss is not finite: {losses}")
+    if not np.mean(losses[-2:]) < losses[0]:
+        raise AssertionError(f"{arch}: the loss did not fall: {losses}")
+    if peak > total_mem:
+        raise AssertionError(f"{arch}: peak {peak} past the card's "
+                             f"{total_mem}")
+    tokens = batch * seq
+    flops = (6 * (n - n_embed) * tokens + 6 * cfg.n_layers * seq
+             * cfg.n_heads * cfg.resolved_head_dim * tokens)
+    med = float(np.median([r["ms"] for r in rows[1:]]))
+    out[arch] = dict(params=n, init_s=init_s, rows=rows, peak=peak,
+                     held=held, reckon=reckon, flops=flops, median_ms=med)
+    log(f"[train] {smi}: {arch} ({cfg.n_layers} layers, {n} parameters, "
+        f"{cfg.dtype}, remat {cfg.remat}): init_train_state {init_s:.3f} s, "
+        f"{held} bytes held after it (reckoned: weights "
+        f"{reckon['weights']}, moments {reckon['moments']}); {steps} steps "
+        f"of {batch}x{seq} Zipf({TRAIN_ZIPF_S}) tokens in {mb} "
+        f"microbatches, float32 moments, warmup {opt.warmup_steps}")
+    for i, r in enumerate(rows):
+        log(f"[train] {smi}: {arch} step {i}: loss {r['loss']:.5f}, "
+            f"grad_norm {r['grad_norm']:.5f}, lr {r['lr']:.3e}; "
+            f"{r['ms']:.3f} ms by CUDA events (fwd+bwd per microbatch "
+            f"{json.dumps([round(x, 3) for x in r['micro_ms']])}, update "
+            f"{r['update_ms']:.3f}), host {r['wall_ms']:.3f} ms")
+    log(f"[train] {smi}: {arch}: median of steps 1-{steps - 1} {med:.3f} ms "
+        f"a step, {tokens / med * 1e3:.1f} tokens/s; model FLOPs a step "
+        f"{flops:.4e} (6 x {n - n_embed} non-embedding parameters x "
+        f"{tokens} tokens + causal attention), "
+        f"{flops / (med * 1e-3) / 1e12:.1f} TFLOP/s, "
+        f"{flops / (med * 1e-3) / BF16_FLOPS_PER_S * 100:.2f}% of "
+        f"{BF16_FLOPS_PER_S / 1e12:.0f} (information only); peak allocated "
+        f"above the {resident} bytes resident {peak} bytes "
+        f"({peak / 2**30:.3f} GiB; reckoned {sum(reckon.values())} "
+        f"persistent + activations + the block gradients before their "
+        f"stack), card {total_mem}; mean of the last two losses "
+        f"{np.mean(losses[-2:]):.5f} < first {losses[0]:.5f}")
+
+    # -- bf16 against float32 at full depth, on the trained weights ---------
+    del state, step_fn
+    gc.collect()
+    torch.cuda.empty_cache()
+    tok = shard_batch(stream.batch(0, batch), None, mb, device=dev)
+    tk, lb = tok["tokens"][0], tok["labels"][0]
+    torch.cuda.reset_peak_memory_stats()
+    l16 = backward(cfg, params, tk, lb)
+    g16 = grads_of(params)
+    for p in params.parameters():
+        p.grad = None
+    p32 = ParamTree(tree_map(lambda p: p.detach().float(), params.tree()))
+    cfg32 = dataclasses.replace(cfg, dtype="float32")
+    l32 = backward(cfg32, p32, tk, lb)
+    g32 = grads_of(p32)
+    dot = n16 = n32 = 0.0
+    leaf_cos = {}
+    for name, a in g16.items():
+        a = a.float()
+        b = g32[name]
+        d, x, y = (float((a * b).sum(dtype=torch.float64)),
+                   float((a * a).sum(dtype=torch.float64)),
+                   float((b * b).sum(dtype=torch.float64)))
+        dot, n16, n32 = dot + d, n16 + x, n32 + y
+        if x > 0 and y > 0:
+            leaf_cos[name] = d / (x * y) ** 0.5
+    cos = dot / (n16 * n32) ** 0.5
+    peak_cos = torch.cuda.max_memory_allocated() - resident
+    worst_leaf = min(leaf_cos, key=leaf_cos.get)
+    del g16, g32, p32, params
+    gc.collect()
+    torch.cuda.empty_cache()
+    if not cos >= TRAIN_COS_MIN:
+        raise AssertionError(f"{arch}: bf16 gradient cosine {cos} with the "
+                             f"float32 gradient, under {TRAIN_COS_MIN}")
+    out["cos"] = dict(cos=cos, l16=l16, l32=l32, worst=worst_leaf,
+                      worst_cos=leaf_cos[worst_leaf], peak=peak_cos)
+    log(f"[train] {smi}: {arch} at all {cfg.n_layers} layers, the trained "
+        f"weights, one microbatch ({tk.shape[0]}x{tk.shape[1]}): bf16 "
+        f"gradient against float32 on the cast-up weights: cosine "
+        f"{cos:.6f} over every leaf (gate >= {TRAIN_COS_MIN}); loss bf16 "
+        f"{l16:.5f}, float32 {l32:.5f}; lowest leaf cosine "
+        f"{leaf_cos[worst_leaf]:.6f} ({worst_leaf}); peak allocated "
+        f"{peak_cos} bytes ({peak_cos / 2**30:.3f} GiB)")
+
+    # -- the card's float32 gradient against the host CPU's ----------------
+    out["cpu"] = {}
+    for name in (TRAIN_QWEN[0], TRAIN_MAMBA[0]):
+        c = dataclasses.replace(get_config(name), dtype="float32",
+                                n_layers=TRAIN_CPU_LAYERS
+                                * len(get_config(name).pattern))
+        pc = init_params(c, seed + 1, dev)
+        ph = ParamTree(tree_map(lambda p: p.detach().cpu(), pc.tree()))
+        bt = ZipfTokenStream(c.vocab_size, TRAIN_CPU_TOKENS,
+                             zipf_s=TRAIN_ZIPF_S, seed=seed).batch(0, 1)
+        tk_h = torch.from_numpy(bt["tokens"])
+        lb_h = torch.from_numpy(bt["labels"])
+        (l_card, t_card) = host_s(lambda: backward(c, pc, tk_h.to(dev),
+                                                   lb_h.to(dev)))
+        t = time.perf_counter()
+        l_host = backward(c, ph, tk_h, lb_h)
+        t_host = time.perf_counter() - t
+        g_card, g_host = grads_of(pc), grads_of(ph)
+        worst, where = 0.0, None
+        for leaf, gh in g_host.items():
+            if not (torch.isfinite(gh).all() and
+                    torch.isfinite(g_card[leaf]).all()):
+                raise AssertionError(f"{name}: a gradient of {leaf} is "
+                                     "not finite")
+            scale = float(gh.abs().max())
+            diff = float((g_card[leaf].cpu() - gh).abs().max())
+            err = diff / scale if scale > 0 else diff
+            if err >= worst:
+                worst, where = err, leaf
+        del pc, ph, g_card, g_host
+        gc.collect()
+        torch.cuda.empty_cache()
+        if not worst <= TRAIN_CPU_TOL:
+            raise AssertionError(f"{name}: the card's float32 gradient is "
+                                 f"{worst} from the CPU's at {where}")
+        out["cpu"][name] = dict(worst=worst, where=where, loss=l_card,
+                                loss_host=l_host, card_s=t_card,
+                                host_s=t_host)
+        log(f"[train] {smi}: {name} at published widths, "
+            f"{c.n_layers} layers, float32, one sequence of "
+            f"{TRAIN_CPU_TOKENS} tokens: the card's gradient against the "
+            f"host CPU's: largest per-leaf max |diff| / max |g| {worst:.3e} "
+            f"({where}; gate {TRAIN_CPU_TOL}); loss card {l_card:.7f}, host "
+            f"{l_host:.7f}; backward {t_card:.3f} s card, {t_host:.3f} s "
+            f"host ({torch.get_num_threads()} threads)")
+
+    # -- mamba2-780m through the Trainer: crash, resume, twin --------------
+    arch, steps, batch, seq, mb = TRAIN_MAMBA
+    cfg = get_config(arch)
+    opt = OptConfig(lr=TRAIN_MAMBA_LR, warmup_steps=max(2, steps // 20),
+                    total_steps=steps, moment_dtype="int8",
+                    grad_quant_bits=8)
+    spots = [tempfile.gettempdir(), str(Path(__file__).resolve().parent)]
+    spot = max(spots, key=lambda p: shutil.disk_usage(p).free)
+    root = tempfile.mkdtemp(prefix=".durable_train_", dir=spot)
+    tc = TrainerConfig(steps=steps, global_batch=batch, microbatches=mb,
+                       seq_len=seq, ckpt_every=TRAIN_CKPT_EVERY,
+                       log_every=TRAIN_CKPT_EVERY,
+                       ckpt_dir=os.path.join(root, "run"), keep_ckpts=2,
+                       zipf_s=TRAIN_ZIPF_S, seed=seed)
+    say = lambda s: log(f"[train] {smi}: {arch}: {s}")  # noqa: E731
+    saves, restores, kept = [], [], {}
+    prev_env = os.environ.get("CUBLAS_WORKSPACE_CONFIG")
+    os.environ["CUBLAS_WORKSPACE_CONFIG"] = ":4096:8"
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    # the NaN fill of every new tensor adds a launch to each eager op; a
+    # read of memory nothing wrote would differ between the resumed run
+    # and its twin all the same
+    prev_fill = torch.utils.deterministic.fill_uninitialized_memory
+    torch.utils.deterministic.fill_uninitialized_memory = False
+    torch.cuda.reset_peak_memory_stats()
+    resident = torch.cuda.memory_allocated()
+    try:
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            crashed = Trainer(cfg, opt, tc, log_fn=say, device=dev)
+            free = shutil.disk_usage(root).free
+            orig_save = crashed.ckpt.save
+
+            def save(step, tree, extra=None):
+                parts = {}
+                _, s = host_s(lambda: orig_save(step, tree, extra,
+                                                timings=parts))
+                saves.append(dict(parts, step=step, s=s))
+                if step == 2 * TRAIN_CKPT_EVERY:
+                    kept.update((p, x.detach().clone())
+                                for p, x in _flatten(tree))
+            crashed.ckpt.save = save
+            try:
+                crashed.run(fail_at_step=TRAIN_FAIL_AT)
+            except RuntimeError as e:
+                if "injected failure" not in str(e):
+                    raise
+            else:
+                raise AssertionError("the crashed run did not stop")
+            crash_times = list(crashed.step_times)
+            del crashed
+            resumed = Trainer(cfg, opt, tc, log_fn=say, device=dev)
+            restored = {}
+            orig_restore = resumed.ckpt.restore_latest
+
+            def restore(template, device=None):
+                (s, tree), secs = host_s(lambda: orig_restore(template,
+                                                              device))
+                restores.append(dict(step=s, s=secs))
+                # before the resumed steps write these leaves in place
+                got = dict(_flatten(tree))
+                if list(got) != list(kept):
+                    raise AssertionError(f"{arch}: the restored tree's "
+                                         "leaves differ from the saved's")
+                bad = [p for p in kept if not torch.equal(bits(kept[p]),
+                                                          bits(got[p]))]
+                if bad:
+                    raise AssertionError(f"{arch}: restored leaves differ "
+                                         f"from the saved ones: {bad[:5]}")
+                finite = all(bool(torch.isfinite(x).all())
+                             for p, x in got.items()
+                             if p.startswith("0.") and x.is_floating_point())
+                if not finite:
+                    raise AssertionError(f"{arch}: the saved parameters "
+                                         "are not finite")
+                return s, tree
+            resumed.ckpt.restore_latest = restore
+            resumed.ckpt.save = save
+            res = resumed.run()
+            n_bytes = sum(x.numel() * x.element_size()
+                          for x in kept.values())
+            del kept
+            shutil.rmtree(tc.ckpt_dir)
+            peak_resume = torch.cuda.max_memory_allocated() - resident
+            # the uninterrupted twin; one step is slowed on the host
+            twin = Trainer(cfg, opt, dataclasses.replace(
+                tc, ckpt_dir=os.path.join(root, "twin"), ckpt_every=steps),
+                log_fn=say, device=dev)
+            orig_step, calls, slept = twin.train_step, [0], []
+
+            def slow_step(*a, **k):
+                calls[0] += 1
+                if calls[0] == 8:   # 2.5x the median against a factor 2
+                    pause = 1.5 * statistics.median(twin.step_times)
+                    slept.append(pause)
+                    time.sleep(pause)
+                return orig_step(*a, **k)
+            twin.train_step = slow_step
+            twin_marks: list = []
+            with marking(twin_marks):
+                ref = twin.run()
+            twin_split = split(twin_marks, mb)
+        nondet = sorted({str(w.message).splitlines()[0] for w in caught
+                         if "determinis" in str(w.message)})
+    finally:
+        torch.use_deterministic_algorithms(False)
+        torch.utils.deterministic.fill_uninitialized_memory = prev_fill
+        if prev_env is None:
+            os.environ.pop("CUBLAS_WORKSPACE_CONFIG", None)
+        else:
+            os.environ["CUBLAS_WORKSPACE_CONFIG"] = prev_env
+        shutil.rmtree(root, ignore_errors=True)
+    peak = torch.cuda.max_memory_allocated() - resident
+    tail = ref["losses"][TRAIN_FAIL_AT - 1:]
+    same_loss = np.array_equal(np.array(res["losses"]), np.array(tail),
+                               equal_nan=True)
+    ours = _flatten((res["params"].tree(), res["opt_state"]))
+    theirs = _flatten((ref["params"].tree(), ref["opt_state"]))
+    same_state = [p for (p, a), (_, b) in zip(ours, theirs)
+                  if not torch.equal(bits(a), bits(b))]
+    if not np.isfinite(res["losses"]).all():
+        raise AssertionError(f"{arch}: a loss is not finite: {res['losses']}")
+    if nondet or not same_loss or same_state:
+        raise AssertionError(
+            f"{arch}: the resumed run differs from the twin (losses "
+            f"{res['losses']} against {tail}; leaves {same_state[:5]}); "
+            f"ops without a deterministic CUDA version: {nondet}")
+    if twin.straggler_events < 1:
+        raise AssertionError(f"{arch}: the watchdog missed the slowed step")
+    n_m = sum(p.numel() for p in ref["params"].parameters())
+    twin_ms = [t * 1e3 for t in twin.step_times]
+    med = float(np.median([x for i, x in enumerate(twin_ms)
+                           if i not in (0, 7)]))
+    out[arch] = dict(params=n_m, losses=ref["losses"], resumed=res["losses"],
+                     twin_ms=twin_ms, crash_ms=[t * 1e3 for t in
+                                                crash_times],
+                     saves=saves, restores=restores, ckpt_bytes=n_bytes,
+                     free=free, peak=peak, peak_resume=peak_resume,
+                     slept=slept, stragglers=twin.straggler_events)
+    del res, ref, twin, resumed
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"[train] {smi}: {arch} ({cfg.n_layers} layers, {n_m} parameters, "
+        f"{cfg.dtype}) through the Trainer: {steps} steps of {batch}x{seq} "
+        f"tokens in {mb} microbatches, int8 moments, grad_quant_bits 8, "
+        f"checkpoints every {TRAIN_CKPT_EVERY} (keep 2) under {root} "
+        f"({free} bytes free); losses of the twin "
+        f"{json.dumps([round(x, 5) for x in out[arch]['losses']])}")
+    log(f"[train] {smi}: {arch}: host ms a step (batch to float(loss)), "
+        f"twin {json.dumps([round(x, 3) for x in twin_ms])}; median of "
+        f"steps 1-{steps - 1} but the slowed one {med:.3f} ms, "
+        f"{batch * seq / med * 1e3:.1f} "
+        f"tokens/s; crashed run "
+        f"{json.dumps([round(x, 3) for x in out[arch]['crash_ms']])}")
+    out[arch]["split"] = twin_split
+    log(f"[train] {smi}: {arch}: twin, device ms a step by CUDA events: "
+        f"{json.dumps([round(r['ms'], 3) for r in twin_split])}; fwd+bwd "
+        f"per microbatch, median "
+        f"{np.median([x for r in twin_split for x in r['micro_ms']]):.3f}; "
+        f"update (int8 moments, error feedback), median "
+        f"{np.median([r['update_ms'] for r in twin_split]):.3f}")
+    for s in saves:
+        log(f"[train] {smi}: {arch}: save of step {s['step']}: {s['s']:.3f} "
+            f"s, {s['bytes']} bytes, {s['bytes'] / s['s'] / 1e9:.3f} GB/s "
+            f"(device to host {s['d2h_s']:.3f} s, CRC {s['crc_s']:.3f} s, "
+            f"writes with fsync {s['write_s']:.3f} s, rename "
+            f"{s['rename_s']:.3f} s)")
+    for r in restores:
+        log(f"[train] {smi}: {arch}: restore of step {r['step']}: "
+            f"{r['s']:.3f} s, {n_bytes / r['s'] / 1e9:.3f} GB/s onto the "
+            f"card")
+    log(f"[train] {smi}: {arch}: the crash at step {TRAIN_FAIL_AT} resumed "
+        f"from step {restores[0]['step']}; the restored tree equals the "
+        f"saved one bit for bit ({n_bytes} bytes); the resumed run's "
+        f"losses and final weights and optimizer state equal the twin's "
+        f"bit for bit under torch.use_deterministic_algorithms (no op "
+        f"without a deterministic CUDA version warned); the watchdog fired "
+        f"{out[arch]['stragglers']} time(s) on the step slowed by "
+        f"{json.dumps([round(x, 3) for x in slept])} s; peak allocated "
+        f"above the {resident} bytes resident {peak} bytes "
+        f"({peak / 2**30:.3f} GiB)")
+    out["seconds"] = time.perf_counter() - t_phase
     return out
 
 
@@ -3100,6 +3588,17 @@ def main() -> int:
     log(f"[memory] phase 6g: resident at its start {resident_6g} bytes, "
         f"after deleting the earlier phases' engines and tables")
     log(f"[6g] LM serving: {time.perf_counter() - t_6g:.1f} s")
+
+    # -- 6h. LM training -------------------------------------------------------
+    # after 6g, with every earlier phase's state freed
+    gc.collect()
+    torch.cuda.empty_cache()
+    t_6h = time.perf_counter()
+    resident_6h = torch.cuda.memory_allocated()
+    got = counted(lambda: lm_training(args.seed + 8, smi, dev))[1]
+    check_counts(got, _ZERO, "phase 6h (LM training: no JSPIM kernel)")
+    log(f"[memory] phase 6h: resident at its start {resident_6h} bytes")
+    log(f"[6h] LM training: {time.perf_counter() - t_6h:.1f} s")
 
     # -- 8. numbers ---------------------------------------------------------------
     log(f"[memory] resident before the main path (tables, indexes): "

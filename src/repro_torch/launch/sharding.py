@@ -7,8 +7,11 @@ PyTorch port of ``repro.launch.sharding``, one-device part.  Logical axes:
 
 ``resolve`` is pure, on axis-name tuples.  ``constrain`` returns its input:
 one device has no mesh, as the reference's is a no-op outside one.  The
-parameter rules (``spec``, ``PARAM_RULES``, ``param_specs``) come with the
-multi-process slice.
+parameter rules (``spec``, ``PARAM_RULES``, ``param_spec_for``,
+``param_specs``, ``named_shardings``) come with the multi-process slice
+(ROADMAP Queue 1 item 2d), as do the meshes of the training path:
+``data.shard_batch``, ``train.Trainer`` and ``launch.train --mesh``
+raise ``NotImplementedError`` when given one.
 """
 from __future__ import annotations
 

@@ -4,6 +4,10 @@ PyTorch port of ``repro.models.ssm``.  Prefill: the sequence is split into
 chunks; the intra-chunk term is a masked quadratic (attention-like) product,
 the inter-chunk term a loop over chunk states — linear in sequence length.
 Decode: O(1) per token via the carried (B, nh, hd, N) state + conv tail.
+The intra-chunk decay is masked to -inf above the diagonal before its
+``exp``, where the reference masks after it: the forward is the same bit
+for bit, and the backward stays finite over a 128-token chunk, where the
+reference's overflows to 0 * inf = NaN (ROADMAP Queue 3).
 """
 from __future__ import annotations
 
@@ -111,6 +115,11 @@ def ssd_scan(x, dt, a_log, bmat, cmat, chunk: int):
         # T[b,h,i,j] = (C_i·B_j) * exp(cum_i - cum_j) * dt_j   (i >= j)
         cb = torch.einsum("bin,bjn->bij", ck, bk)          # (B,L,L)
         dec = cumk[:, :, None, :] - cumk[:, None, :, :]    # (B,L,L,nh)
+        # above the diagonal dec is a growing sum of -dt*a > 0 and its exp
+        # overflows over a 128-token chunk; -inf there keeps the forward
+        # bit for bit and the backward finite (the reference's masked inf
+        # gives 0 * inf = NaN gradients: ROADMAP Queue 3)
+        dec = torch.where(mask[None, :, :, None], dec, float("-inf"))
         t = torch.where(mask[None, :, :, None],
                         cb[..., None] * torch.exp(dec) * dtk[:, None, :, :],
                         0.0)

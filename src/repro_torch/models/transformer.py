@@ -4,11 +4,17 @@ PyTorch port of ``repro.models.transformer``.  The parameters form a
 :class:`ParamTree`, an ``nn.Module`` whose parameter names are the
 reference's tree paths with ``/`` written as ``.`` (``embed.tokens``,
 ``blocks.3.mixer.wq``, ``final_norm``, ``lm_head``), each block parameter
-with the reference's leading ``n_repeats`` dimension.  The forward pass
-loops over repeats in Python and indexes the stacked weights (``wq[r]``)
-where the reference scans.  Eager PyTorch needs neither ``jax.jit``'s
-donation nor ``jax.checkpoint``: ``decode_step`` writes the caches in
-place, and ``remat`` is not applied.
+with the reference's leading ``n_repeats`` dimension; ``ParamTree.tree()``
+is the reference's dict/list tree over the same parameters.  The passes
+loop over repeats in Python where the reference scans, on the slices one
+``torch.unbind`` a leaf takes once per pass: under autograd its backward
+stacks the repeats' gradients once, where indexing ``wq[r]`` per repeat
+would accumulate a zero-padded whole-leaf gradient per repeat.  With
+``cfg.remat == "block"`` (the default) and gradients enabled, ``forward``
+recomputes each repeat of the pattern in the backward
+(``torch.utils.checkpoint``, the reference's ``jax.checkpoint``), so the
+activations kept are one ``(B, S, D)`` input a repeat.  ``decode_step``
+writes the caches in place, where the reference donates them.
 
 Entry points:
   init_params / forward / loss_fn          — the model and its loss
@@ -18,6 +24,7 @@ from __future__ import annotations
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.engine.table import resolve_device
 from repro_torch.models import attention as attn
@@ -45,6 +52,15 @@ class ParamTree(nn.Module):
                 self.add_module(name, ParamTree(v))
             else:
                 self.add_module(name, nn.ModuleList(ParamTree(x) for x in v))
+
+    def tree(self) -> dict:
+        """The reference's nested dict/list tree over these parameters
+        (the same ``nn.Parameter`` objects)."""
+        out: dict = dict(self._parameters)
+        for name, m in self._modules.items():
+            out[name] = (m.tree() if isinstance(m, ParamTree)
+                         else [c.tree() for c in m])
+        return out
 
 
 # ---------------------------------------------------------------------------
@@ -117,25 +133,38 @@ def _lm_head(cfg: ModelConfig, params: ParamTree) -> torch.Tensor:
     return params.lm_head
 
 
-def _layer(node: nn.Module, r: int, cls):
-    """Repeat ``r`` of a stacked mixer or FFN node as ``cls``."""
-    return cls(**{f: getattr(node, f)[r] for f in cls._fields})
+def _repeats(blk: nn.Module, n: int) -> list[dict]:
+    """The ``n`` repeats of a stacked pattern position, each a tree of its
+    leaves' slices (``{"ln1": ..., "mixer": {"wq": ...}, ...}``), taken with
+    one ``torch.unbind`` a leaf."""
+    out: list[dict] = [{} for _ in range(n)]
+    for name, leaf in blk.named_parameters():
+        *path, last = name.split(".")
+        for node, piece in zip(out, leaf.unbind(0)):
+            for k in path:
+                node = node.setdefault(k, {})
+            node[last] = piece
+    return out
+
+
+def _layer(node: dict, cls):
+    """A repeat's mixer or FFN slices as ``cls``."""
+    return cls(**{f: node[f] for f in cls._fields})
 
 
 # ---------------------------------------------------------------------------
 # forward
 # ---------------------------------------------------------------------------
 
-def _mixer_prefill(cfg: ModelConfig, blk: nn.Module, r: int, mixer: str,
+def _mixer_prefill(cfg: ModelConfig, p: dict, mixer: str,
                    h: torch.Tensor, positions: torch.Tensor,
                    image_embeds: torch.Tensor | None):
     """A mixer over the whole sequence: (output, the layer's cache)."""
     b, s = h.shape[:2]
     dt = _dtype(cfg)
     if mixer == "mamba":
-        return ssm.mamba_forward(_layer(blk.mixer, r, ssm.MambaParams),
-                                 cfg, h)
-    ap = _layer(blk.mixer, r, attn.AttnParams)
+        return ssm.mamba_forward(_layer(p["mixer"], ssm.MambaParams), cfg, h)
+    ap = _layer(p["mixer"], attn.AttnParams)
     if mixer == "attn":
         q, k, v = attn._project_qkv(ap, cfg, h, positions)
         o = attn.blockwise_attention(q, k, v, causal=True,
@@ -149,16 +178,16 @@ def _mixer_prefill(cfg: ModelConfig, blk: nn.Module, r: int, mixer: str,
     return o.reshape(b, s, -1) @ ap.wo, attn.KVCache(k.to(dt), v.to(dt))
 
 
-def _ffn(cfg: ModelConfig, blk: nn.Module, r: int, ffn: str,
+def _ffn(cfg: ModelConfig, p: dict, ffn: str,
          x: torch.Tensor) -> torch.Tensor:
     if ffn == "none":
         return x
-    h2 = rms_norm(x, blk.ln2[r], cfg.norm_eps)
+    h2 = rms_norm(x, p["ln2"], cfg.norm_eps)
     if ffn == "dense":
-        f = glu_ffn(h2, blk.ffn.w_in[r], blk.ffn.w_gate[r], blk.ffn.w_out[r],
-                    cfg.act)
+        w = p["ffn"]
+        f = glu_ffn(h2, w["w_in"], w["w_gate"], w["w_out"], cfg.act)
     else:
-        f = moe_mod.moe_ffn(_layer(blk.ffn, r, moe_mod.MoEParams), cfg, h2,
+        f = moe_mod.moe_ffn(_layer(p["ffn"], moe_mod.MoEParams), cfg, h2,
                             cfg.act)
     return x + f
 
@@ -173,12 +202,24 @@ def forward(cfg: ModelConfig, params: ParamTree, tokens: torch.Tensor,
     b, s = tokens.shape
     x = embed_tokens(params.embed.tokens, tokens, dedup=cfg.dedup_embed)
     positions = _positions(b, s, x.device)
+    reps = [_repeats(blk, cfg.n_repeats) for blk in params.blocks]
+
+    def block_fn(x: torch.Tensor, ps: list[dict]) -> torch.Tensor:
+        for p, (mixer, ffn) in zip(ps, cfg.pattern):
+            h = rms_norm(x, p["ln1"], cfg.norm_eps)
+            mx, _ = _mixer_prefill(cfg, p, mixer, h, positions, image_embeds)
+            x = _ffn(cfg, p, ffn, x + mx)
+        return x
+
+    remat = cfg.remat == "block" and torch.is_grad_enabled()
     for r in range(cfg.n_repeats):
-        for blk, (mixer, ffn) in zip(params.blocks, cfg.pattern):
-            h = rms_norm(x, blk.ln1[r], cfg.norm_eps)
-            mx, _ = _mixer_prefill(cfg, blk, r, mixer, h, positions,
-                                   image_embeds)
-            x = _ffn(cfg, blk, r, ffn, x + mx)
+        ps = [rep[r] for rep in reps]
+        if remat:
+            # the pass draws no random numbers: no RNG state to replay
+            x = checkpoint(block_fn, x, ps, use_reentrant=False,
+                           preserve_rng_state=False)
+        else:
+            x = block_fn(x, ps)
     return rms_norm(x, params.final_norm, cfg.norm_eps)
 
 
@@ -231,14 +272,16 @@ def prefill(cfg: ModelConfig, params: ParamTree, tokens: torch.Tensor,
     positions = _positions(b, s, x.device)
     n_img = image_embeds.shape[1] if image_embeds is not None else 0
     caches = init_caches(cfg, b, max_seq, n_img, device=x.device)
+    reps = [_repeats(blk, cfg.n_repeats) for blk in params.blocks]
     for r in range(cfg.n_repeats):
-        for blk, c, (mixer, ffn) in zip(params.blocks, caches, cfg.pattern):
-            h = rms_norm(x, blk.ln1[r], cfg.norm_eps)
-            mx, layer = _mixer_prefill(cfg, blk, r, mixer, h, positions,
+        for rep, c, (mixer, ffn) in zip(reps, caches, cfg.pattern):
+            p = rep[r]
+            h = rms_norm(x, p["ln1"], cfg.norm_eps)
+            mx, layer = _mixer_prefill(cfg, p, mixer, h, positions,
                                        image_embeds)
             for full, part in zip(c, layer):
                 full[r, :, :part.shape[1]] = part
-            x = _ffn(cfg, blk, r, ffn, x + mx)
+            x = _ffn(cfg, p, ffn, x + mx)
     x = rms_norm(x, params.final_norm, cfg.norm_eps)
     logits = (x[:, -1, :] @ _lm_head(cfg, params)).float()
     return logits, caches
@@ -261,15 +304,17 @@ def decode_step(cfg: ModelConfig, params: ParamTree, caches: list,
                              f"of {c.k.shape[2]} positions")
     x = embed_tokens(params.embed.tokens, token, dedup=cfg.dedup_embed)
     hd = cfg.resolved_head_dim
+    reps = [_repeats(blk, cfg.n_repeats) for blk in params.blocks]
     for r in range(cfg.n_repeats):
-        for blk, c, (mixer, ffn) in zip(params.blocks, caches, cfg.pattern):
-            h = rms_norm(x, blk.ln1[r], cfg.norm_eps)
+        for rep, c, (mixer, ffn) in zip(reps, caches, cfg.pattern):
+            p = rep[r]
+            h = rms_norm(x, p["ln1"], cfg.norm_eps)
             if mixer == "attn":
                 mx, _ = attn.decode_attention(
-                    _layer(blk.mixer, r, attn.AttnParams), cfg, h,
+                    _layer(p["mixer"], attn.AttnParams), cfg, h,
                     attn.KVCache(c.k[r], c.v[r]), pos)
             elif mixer == "xattn":
-                ap = _layer(blk.mixer, r, attn.AttnParams)
+                ap = _layer(p["mixer"], attn.AttnParams)
                 q = (h @ ap.wq).reshape(b, 1, cfg.n_heads, hd)
                 if cfg.qk_norm:
                     q = rms_norm(q, ap.q_norm, cfg.norm_eps)
@@ -279,11 +324,11 @@ def decode_step(cfg: ModelConfig, params: ParamTree, caches: list,
                 mx = o.reshape(b, 1, -1) @ ap.wo
             else:
                 mx, st = ssm.mamba_decode(
-                    _layer(blk.mixer, r, ssm.MambaParams), cfg, h,
+                    _layer(p["mixer"], ssm.MambaParams), cfg, h,
                     ssm.MambaState(c.h[r], c.conv[r]))
                 c.h[r] = st.h
                 c.conv[r] = st.conv
-            x = _ffn(cfg, blk, r, ffn, x + mx)
+            x = _ffn(cfg, p, ffn, x + mx)
     x = rms_norm(x, params.final_norm, cfg.norm_eps)
     logits = (x[:, -1, :] @ _lm_head(cfg, params)).float()
     return logits, caches

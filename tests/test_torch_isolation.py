@@ -101,6 +101,16 @@ assert torch.equal(res.tokens[:, 0],
                    prefill(cfg, srv.params, prompts)[0].argmax(-1))
 assert sum(p.numel() for p in init_params(
     get_config("kimi-k2-1t-a32b"), device="meta").parameters()) > 1e12
+import repro_torch.optim, repro_torch.train, repro_torch.data
+import repro_torch.launch.train
+from repro_torch.optim import OptConfig
+from repro_torch.train import Trainer, TrainerConfig
+res = Trainer(smoke("mamba2-780m"), OptConfig(moment_dtype="int8",
+                                              grad_quant_bits=8),
+              TrainerConfig(steps=2, global_batch=2, seq_len=16,
+                            ckpt_dir=tempfile.mkdtemp()),
+              log_fn=lambda s: None, device="cpu").run()
+assert len(res["losses"]) == 2
 assert not any(m.split(".")[0] in ("jax", "jaxlib", "repro", "ml_dtypes")
                for m in sys.modules)
 """
@@ -174,6 +184,28 @@ def test_open_without_device_raises(no_card, tmp_path):
     with pytest.raises(RuntimeError, match="device='cpu'"):
         SSBEngine.open(root)
     assert SSBEngine.open(root, device="cpu").epoch == 0
+
+
+def test_training_without_device_raises(no_card, tmp_path):
+    import numpy as np
+    from repro_torch.configs import smoke
+    from repro_torch.data import shard_batch
+    from repro_torch.launch.train import main
+    from repro_torch.optim import OptConfig
+    from repro_torch.train import Trainer, TrainerConfig, init_train_state
+    cfg = smoke("qwen3-4b")
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        init_train_state(cfg, OptConfig())
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        Trainer(cfg, OptConfig(), TrainerConfig(ckpt_dir=str(tmp_path)))
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        shard_batch({"tokens": np.zeros((2, 4), np.int32)}, None, 1)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        main(["--arch", "qwen3-4b", "--smoke", "--steps", "1",
+              "--ckpt-dir", str(tmp_path)])
+    params, state = init_train_state(cfg, OptConfig(), device="cpu")
+    assert params.embed.tokens.device.type == "cpu"
+    assert state["step"].device.type == "cpu"
 
 
 @pytest.mark.parametrize("alone", [False, True], ids=["in_repo", "alone"])
