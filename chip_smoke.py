@@ -239,6 +239,29 @@ Phases (each raises on failure; nothing is caught):
    update), tokens/s, the model-FLOPs share, peak memory against the
    reckoning, the mamba2 run's host ms a step, save and restore s and
    GB/s.
+6i. The mesh path of LM training (seed+9), after 6h, with no JSPIM kernel
+   launched (checked 0): jamba-v0.1-52b at published widths cut to its
+   first two layers (``("mamba","dense"),("mamba","moe")``, 3,734,388,992
+   parameters by ``param_count``), ``moe_groups`` 4, bf16, float32
+   moments, through ``Trainer(mesh=ShardMesh((2, 2, 2), ("pod", "data",
+   "model")))`` under ``launch.sharding.activate``: 6 steps of 8x512
+   Zipf(1.1) tokens in 2 microbatches (the Trainer's final save of the
+   37 GB state is skipped; 6h checks saves).  Gates: (1) every loss
+   finite, the mean of the last two below the first, ``_grouped_manual``
+   reached (its calls counted); (4) ``reshard_params`` and
+   ``reshard_opt_state`` onto ``(2, 2)`` ``("data", "model")`` and back:
+   every placement equals the sanitized rules, the moments their
+   parameters', storage and bits unchanged; (3) ``psum_compressed`` over
+   "pod" of the two microbatches' gradients as the two pod regions: both
+   regions equal, each 256-element block within one int8 step per
+   summand of the exact sum (2 x block max / 127); (2) on one float32
+   microbatch of the cast-up weights, the manual dispatch's loss and
+   gradients against the grouped path (no mesh): loss within 2e-4,
+   gradient max |diff| within 5e-3 and within 1e-4 of each leaf's max
+   |g|.  ``[mesh]``: ms a step by CUDA events (each microbatch's forward
+   and backward, the update), tokens/s, the manual and grouped MoE
+   layer's forward and backward ms, the psum's ms, peaks per stage
+   against the reckoning, the phase's seconds.
 7. Skew path (the JAX package's ``benchmarks/skew_sweep.py`` at SSB SF10
    sizes): a 2,000,000-key dimension with part's geometry, probed by
    60,000,000 Zipf(s) keys for s in the paper's grid {0, 0.5, 1.5, 2}.
@@ -642,6 +665,68 @@ TRAIN_COS_MIN = 0.99
 BF16_FLOPS_PER_S = 989e12
 
 
+def _event():
+    import torch
+    e = torch.cuda.Event(enable_timing=True)
+    e.record()
+    return e
+
+
+def _grads_of(params) -> dict:
+    import torch
+    return {n: (p.grad if p.grad is not None else torch.zeros_like(p))
+            for n, p in params.named_parameters()}
+
+
+def _backward(cfg, params, tok, lab) -> float:
+    from repro_torch.models import loss_fn
+    for p in params.parameters():
+        p.grad = None
+    loss = loss_fn(cfg, params, tok, lab)
+    loss.backward()
+    return float(loss.detach())
+
+
+def _bits(t):
+    import torch
+    return t.detach().reshape(-1).view(torch.uint8)
+
+
+@contextlib.contextmanager
+def _marking(marks: list):
+    """CUDA events at each microbatch's start and around the update,
+    recorded by the train step's own calls."""
+    import repro_torch.train.step as step_mod
+    orig_loss, orig_apply = step_mod.loss_fn, step_mod.apply_updates
+
+    def loss_marked(*a, **k):
+        marks.append(_event())
+        return orig_loss(*a, **k)
+
+    def apply_marked(*a, **k):
+        marks.append(_event())
+        res = orig_apply(*a, **k)
+        marks.append(_event())
+        return res
+    step_mod.loss_fn, step_mod.apply_updates = loss_marked, apply_marked
+    try:
+        yield
+    finally:
+        step_mod.loss_fn, step_mod.apply_updates = orig_loss, orig_apply
+
+
+def _split(marks: list, mb: int) -> list[dict]:
+    """Per step: ms of each microbatch's forward and backward, of the
+    update, and their sum."""
+    out = []
+    for i in range(0, len(marks), mb + 2):
+        m = marks[i:i + mb + 2]
+        ms = [a.elapsed_time(z) for a, z in zip(m, m[1:])]
+        out.append({"micro_ms": ms[:mb], "update_ms": ms[mb],
+                    "ms": sum(ms)})
+    return out
+
+
 def lm_training(seed: int, smi: str, dev) -> dict:
     """Phase 6h: the LM training path of the port on the card ``dev`` (see
     the module docstring).  Raises on a failed gate; returns the numbers."""
@@ -656,12 +741,11 @@ def lm_training(seed: int, smi: str, dev) -> dict:
     from repro_torch.checkpoint.manager import _flatten
     from repro_torch.configs import get_config
     from repro_torch.data import ZipfTokenStream, shard_batch
-    from repro_torch.models import ParamTree, init_params, loss_fn
+    from repro_torch.models import ParamTree, init_params
     from repro_torch.optim import OptConfig
     from repro_torch.optim.adamw import tree_map
     from repro_torch.train import (Trainer, TrainerConfig, init_train_state,
                                    make_train_step)
-    import repro_torch.train.step as step_mod
 
     if torch.backends.cuda.matmul.allow_tf32:
         raise AssertionError("float32 products must not run in TF32")
@@ -676,56 +760,8 @@ def lm_training(seed: int, smi: str, dev) -> dict:
         sync()
         return out, time.perf_counter() - t
 
-    def event():
-        e = torch.cuda.Event(enable_timing=True)
-        e.record()
-        return e
-
-    def grads_of(params) -> dict:
-        return {n: (p.grad if p.grad is not None else torch.zeros_like(p))
-                for n, p in params.named_parameters()}
-
-    def backward(cfg, params, tok, lab) -> float:
-        for p in params.parameters():
-            p.grad = None
-        loss = loss_fn(cfg, params, tok, lab)
-        loss.backward()
-        return float(loss.detach())
-
-    def bits(t: torch.Tensor) -> torch.Tensor:
-        return t.detach().reshape(-1).view(torch.uint8)
-
-    @contextlib.contextmanager
-    def marking(marks: list):
-        """CUDA events at each microbatch's start and around the update,
-        recorded by the train step's own calls."""
-        orig_loss, orig_apply = step_mod.loss_fn, step_mod.apply_updates
-
-        def loss_marked(*a, **k):
-            marks.append(event())
-            return orig_loss(*a, **k)
-
-        def apply_marked(*a, **k):
-            marks.append(event())
-            res = orig_apply(*a, **k)
-            marks.append(event())
-            return res
-        step_mod.loss_fn, step_mod.apply_updates = loss_marked, apply_marked
-        try:
-            yield
-        finally:
-            step_mod.loss_fn, step_mod.apply_updates = orig_loss, orig_apply
-
-    def split(marks: list, mb: int) -> list[dict]:
-        """Per step: ms of each microbatch's forward and backward, of the
-        update, and their sum."""
-        out = []
-        for i in range(0, len(marks), mb + 2):
-            m = marks[i:i + mb + 2]
-            ms = [a.elapsed_time(z) for a, z in zip(m, m[1:])]
-            out.append({"micro_ms": ms[:mb], "update_ms": ms[mb],
-                        "ms": sum(ms)})
-        return out
+    event, grads_of, backward, bits, marking, split = (
+        _event, _grads_of, _backward, _bits, _marking, _split)
 
     out = {}
     t_phase = time.perf_counter()
@@ -1075,6 +1111,392 @@ def lm_training(seed: int, smi: str, dev) -> dict:
         f"above the {resident} bytes resident {peak} bytes "
         f"({peak / 2**30:.3f} GiB)")
     out["seconds"] = time.perf_counter() - t_phase
+    return out
+
+
+# phase 6i (the mesh path of LM training): jamba-v0.1-52b at published
+# widths cut to its first two layers (the one reduction), through
+# ``Trainer(mesh=)`` on a (2, 2, 2) region mesh of the card with the
+# manual MoE dispatch, then the manual dispatch against the grouped path,
+# the compressed psum and the reshard
+MESH_ARCH = "jamba-v0.1-52b"
+MESH_PATTERN = (("mamba", "dense"), ("mamba", "moe"))
+MESH_PARAMS = 3_734_388_992
+MESH_SHAPE = ((2, 2, 2), ("pod", "data", "model"))
+MESH_SMALL = ((2, 2), ("data", "model"))
+MESH_RUN = (6, 8, 512, 2)      # steps, global batch, sequence, microbatches
+MESH_GROUPS = 4
+# the manual dispatch against the grouped path in float32: the
+# reference's gates (tests/test_distributed.py: loss 2e-4, gradient max
+# |diff| 5e-3), and per leaf 1e-4 of the leaf's max |g|
+MESH_LOSS_TOL, MESH_GRAD_TOL, MESH_GRAD_REL = 2e-4, 5e-3, 1e-4
+# the compressed psum: each region's result within one int8 step per
+# summand of the exact sum, 2 x (the block's largest |g| over the regions)
+# / 127 per 256-element block; the float32 products and sums of the
+# dequantize add rounding of ~2^-23 of a value, ~3e-5 of the step
+MESH_PSUM_SLACK = 1e-4
+MESH_LAYER_WARM, MESH_LAYER_REPS = 2, 5
+
+
+def lm_mesh(seed: int, smi: str, dev) -> dict:
+    """Phase 6i: the mesh path of LM training on the card ``dev`` (see the
+    module docstring).  Raises on a failed gate; returns the numbers."""
+    import shutil
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    import repro_torch.models.moe as moe_mod
+    from repro_torch.configs import get_config
+    from repro_torch.data import ZipfTokenStream, shard_batch
+    from repro_torch.launch import Placement, make_host_mesh
+    from repro_torch.launch.elastic import (_sanitize, reshard_opt_state,
+                                           reshard_params)
+    from repro_torch.launch.sharding import activate, map_tree, param_specs
+    from repro_torch.models import ParamTree, init_params, loss_fn
+    from repro_torch.optim import OptConfig, psum_compressed
+    from repro_torch.optim.adamw import QBLOCK, tree_map
+    from repro_torch.train import Trainer, TrainerConfig
+
+    def sync():
+        torch.cuda.synchronize()
+
+    def flat(tree) -> dict:
+        got = {}
+        map_tree(lambda path, leaf: got.__setitem__(path, leaf), tree)
+        return got
+
+    def block_max(x: torch.Tensor) -> torch.Tensor:
+        """max |x| per 256-element block of the last dim."""
+        pad = (-x.shape[-1]) % QBLOCK
+        x = torch.nn.functional.pad(x.abs(), (0, pad))
+        return x.reshape(*x.shape[:-1], -1, QBLOCK).amax(dim=-1)
+
+    cfg = dataclasses.replace(get_config(MESH_ARCH),
+                              n_layers=len(MESH_PATTERN),
+                              pattern=MESH_PATTERN, moe_groups=MESH_GROUPS)
+    if cfg.param_count() != MESH_PARAMS:
+        raise AssertionError(f"{cfg.param_count()} parameters, not "
+                             f"{MESH_PARAMS}")
+    steps, batch, seq, mb = MESH_RUN
+    mesh = make_host_mesh(*MESH_SHAPE, device=dev)
+    # the tree also holds the norm gains and SSD vectors param_count omits
+    n = sum(p.numel() for p in init_params(cfg, device="meta").parameters())
+    reckon = {"weights": 2 * n, "moments": 8 * n, "accumulator": 4 * n}
+    out = {"reckon": reckon}
+    t_phase = time.perf_counter()
+    total_mem = torch.cuda.get_device_properties(dev).total_memory
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    resident = torch.cuda.memory_allocated()
+    say = lambda s: log(f"[mesh] {smi}: {s}")  # noqa: E731
+    calls = [0]
+    orig_manual = moe_mod._grouped_manual
+
+    def manual(*a, **k):
+        calls[0] += 1
+        return orig_manual(*a, **k)
+
+    # -- gate 1: meshed training through the Trainer ---------------------
+    root = tempfile.mkdtemp(prefix="mesh_train_")
+    opt = OptConfig(warmup_steps=max(2, steps // 20), total_steps=steps)
+    tc = TrainerConfig(steps=steps, global_batch=batch, microbatches=mb,
+                       seq_len=seq, ckpt_every=steps, log_every=steps,
+                       ckpt_dir=os.path.join(root, "run"),
+                       zipf_s=TRAIN_ZIPF_S, seed=seed)
+    marks: list = []
+    skipped: list = []
+    moe_mod._grouped_manual = manual
+    try:
+        trainer = Trainer(cfg, opt, tc, mesh=mesh, log_fn=say)
+        # a save writes the 37 GB state to disk; 6h checks the saves
+        trainer.ckpt.save = lambda step, tree, extra=None: skipped.append(
+            step)
+        with activate(mesh), _marking(marks):
+            res = trainer.run()
+    finally:
+        moe_mod._grouped_manual = orig_manual
+        shutil.rmtree(root, ignore_errors=True)
+    rows = _split(marks, mb)
+    losses = res["losses"]
+    params, state = res["params"], res["opt_state"]
+    peak_train = torch.cuda.max_memory_allocated() - resident
+    if not all(np.isfinite(losses)):
+        raise AssertionError(f"a meshed loss is not finite: {losses}")
+    if not np.mean(losses[-2:]) < losses[0]:
+        raise AssertionError(f"the meshed loss did not fall: {losses}")
+    if calls[0] < 1:
+        raise AssertionError("training never reached _grouped_manual")
+    med = float(np.median([r["ms"] for r in rows[1:]]))
+    out["train"] = dict(losses=losses, rows=rows, median_ms=med,
+                        manual_calls=calls[0], host_ms=[
+                            t * 1e3 for t in trainer.step_times],
+                        peak=peak_train, skipped_saves=skipped)
+    say(f"{MESH_ARCH} at published widths, layers {list(MESH_PATTERN)} "
+        f"({MESH_PARAMS} parameters by param_count, {n} in the tree, bf16, "
+        f"moe_groups {MESH_GROUPS}), "
+        f"Trainer(mesh=ShardMesh({MESH_SHAPE[0]}, {MESH_SHAPE[1]})) under "
+        f"activate: {steps} steps of {batch}x{seq} Zipf({TRAIN_ZIPF_S}) "
+        f"tokens in {mb} microbatches, float32 moments; _grouped_manual "
+        f"called {calls[0]} times (forward and remat recompute); the "
+        f"Trainer's saves at steps {skipped} skipped (the state is "
+        f"{reckon['weights'] + reckon['moments']} bytes; 6h checks saves)")
+    for i, (r, loss) in enumerate(zip(rows, losses)):
+        say(f"step {i}: loss {loss:.5f}; {r['ms']:.3f} ms by CUDA events "
+            f"(fwd+bwd per microbatch "
+            f"{json.dumps([round(x, 3) for x in r['micro_ms']])}, update "
+            f"{r['update_ms']:.3f}), host "
+            f"{trainer.step_times[i] * 1e3:.3f} ms")
+    say(f"median of steps 1-{steps - 1} {med:.3f} ms a step, "
+        f"{batch * seq / med * 1e3:.1f} tokens/s; mean of the last two "
+        f"losses {np.mean(losses[-2:]):.5f} < first {losses[0]:.5f}; peak "
+        f"allocated above the {resident} bytes resident {peak_train} bytes "
+        f"({peak_train / 2**30:.3f} GiB; reckoned {sum(reckon.values())} "
+        f"persistent: weights {reckon['weights']}, moments "
+        f"{reckon['moments']}, accumulator {reckon['accumulator']}), card "
+        f"{total_mem}")
+    if peak_train > total_mem:
+        raise AssertionError(f"peak {peak_train} past the card's {total_mem}")
+    del trainer, res
+
+    # -- gate 4: reshard onto (2, 2) and back ----------------------------
+    small = make_host_mesh(*MESH_SMALL, device=dev)
+    orig, orig_m = flat(params), {k: flat(state[k]) for k in ("m", "v")}
+    t = time.perf_counter()
+    re = reshard_params(params, small)
+    rs = reshard_opt_state(state, re)
+    back = reshard_params(re, mesh)
+    bs = reshard_opt_state(rs, back)
+    sync()
+    reshard_s = time.perf_counter() - t
+    checked, dropped = 0, 0
+    for m, tree, st in ((small, re, rs), (mesh, back, bs)):
+        with activate(m):
+            rules = flat(param_specs(params))
+        got, mom = flat(tree), {k: flat(st[k]) for k in ("m", "v")}
+        for path, leaf in got.items():
+            want = Placement(m, _sanitize(rules[path], leaf.shape, m))
+            if leaf.placement != want:
+                raise AssertionError(f"{path}: placed {leaf.placement}, "
+                                     f"the rules say {want}")
+            if leaf.data_ptr() != orig[path].data_ptr() or not torch.equal(
+                    _bits(leaf), _bits(orig[path])):
+                raise AssertionError(f"{path}: values moved in the reshard")
+            for k in ("m", "v"):
+                if mom[k][path].placement != want or \
+                        mom[k][path].data_ptr() != orig_m[k][path].data_ptr():
+                    raise AssertionError(f"{k}/{path}: the moment is not "
+                                         "on its parameter's placement")
+            checked += 1
+            if m is small:
+                dropped += sum(a is not None and b is None for a, b in zip(
+                    rules[path], leaf.placement.spec))
+    out["reshard"] = dict(seconds=reshard_s, leaves=checked)
+    say(f"reshard_params + reshard_opt_state onto ShardMesh"
+        f"({MESH_SMALL[0]}, {MESH_SMALL[1]}) and back: {checked} leaf "
+        f"placements equal the sanitized rules, the moments on their "
+        f"parameters' placements, every leaf's storage and bits unchanged "
+        f"(no copy on one card); {dropped} dimensions replicated on "
+        f"(2, 2) where the rule's axes do not divide them; "
+        f"{reshard_s * 1e3:.3f} ms")
+    del re, rs, back, bs, state, orig, orig_m
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # -- the MoE layer: manual against grouped, forward and backward -------
+    stream = ZipfTokenStream(cfg.vocab_size, seq, zipf_s=TRAIN_ZIPF_S,
+                             seed=seed)
+    b = shard_batch(stream.batch(steps, batch), mesh, mb)
+    tk, lb = b["tokens"], b["labels"]
+    ffn = moe_mod.MoEParams(*(getattr(params.blocks[1].ffn, f)[0]
+                              for f in moe_mod.MoEParams._fields))
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed)
+    x = torch.randn((batch // mb, seq, cfg.d_model), generator=gen,
+                    device=dev, dtype=torch.bfloat16).requires_grad_()
+    ct = torch.randn(x.shape, generator=gen, device=dev, dtype=x.dtype)
+    layer = {}
+    for label, ctx in (("manual", lambda: activate(mesh)),
+                       ("grouped", contextlib.nullcontext)):
+        fwd, bwd = [], []
+        before = calls[0]
+        moe_mod._grouped_manual = manual
+        try:
+            with ctx():
+                for r in range(MESH_LAYER_WARM + MESH_LAYER_REPS):
+                    x.grad = None
+                    for p in params.parameters():
+                        p.grad = None
+                    a = _event()
+                    y = moe_mod.moe_ffn(ffn, cfg, x, cfg.act)
+                    mid = _event()
+                    y.backward(ct)
+                    z = _event()
+                    sync()
+                    if r >= MESH_LAYER_WARM:
+                        fwd.append(a.elapsed_time(mid))
+                        bwd.append(mid.elapsed_time(z))
+        finally:
+            moe_mod._grouped_manual = orig_manual
+        took = calls[0] - before
+        if (label == "manual") != (took > 0):
+            raise AssertionError(f"the {label} layer ran _grouped_manual "
+                                 f"{took} times")
+        layer[label] = dict(fwd=fwd, bwd=bwd, y=y.detach(),
+                            dx=x.grad.detach().clone())
+    diff_y = float((layer["manual"]["y"].float()
+                    - layer["grouped"]["y"].float()).abs().max())
+    diff_dx = float((layer["manual"]["dx"].float()
+                     - layer["grouped"]["dx"].float()).abs().max())
+    out["layer"] = {k: dict(fwd=v["fwd"], bwd=v["bwd"])
+                    for k, v in layer.items()}
+    for label, v in layer.items():
+        say(f"MoE layer ({label}, {x.shape[0]}x{seq} tokens of "
+            f"{cfg.d_model}, {cfg.moe.num_experts} experts top-"
+            f"{cfg.moe.top_k}, {MESH_GROUPS} groups, bf16) by CUDA events, "
+            f"{MESH_LAYER_REPS} reps after {MESH_LAYER_WARM}: forward ms "
+            f"{json.dumps([round(t, 3) for t in v['fwd']])}, median "
+            f"{np.median(v['fwd']):.3f}; backward ms "
+            f"{json.dumps([round(t, 3) for t in v['bwd']])}, median "
+            f"{np.median(v['bwd']):.3f}")
+    say(f"MoE layer manual against grouped, bf16 (information): output max "
+        f"|diff| {diff_y:.3e}, input gradient max |diff| {diff_dx:.3e}")
+    del layer, x, ct, y
+    for p in params.parameters():
+        p.grad = None
+
+    # -- gate 3: compressed psum of the two microbatches' gradients ------
+    peaks = {"train": peak_train,
+             "layer": torch.cuda.max_memory_allocated() - resident}
+    torch.cuda.reset_peak_memory_stats()
+    gr = []
+    moe_mod._grouped_manual = manual
+    try:
+        with activate(mesh):
+            for i in range(mb):
+                _backward(cfg, params, tk[i], lb[i])
+                gr.append(_grads_of(params))
+    finally:
+        moe_mod._grouped_manual = orig_manual
+    for p in params.parameters():
+        p.grad = None
+    psum_ms, worst, where, n_blocks, n_elems = 0.0, 0.0, None, 0, 0
+    for name in gr[0]:
+        g = torch.stack([gr[0][name], gr[1][name]])
+        a = _event()
+        red = psum_compressed([g], "pod", mesh)[0]
+        z = _event()
+        sync()
+        psum_ms += a.elapsed_time(z)
+        # checked a slice of rows at a time: a whole experts leaf in
+        # float32 is 3.8 GB a region
+        gv, rv = g.view(2, -1, g.shape[-1]), red.view(2, -1, g.shape[-1])
+        rows = max(1, (1 << 24) // (2 * g.shape[-1]))
+        for i in range(0, gv.shape[1], rows):
+            gs, rs_ = gv[:, i:i + rows].float(), rv[:, i:i + rows]
+            if not torch.equal(rs_[0], rs_[1]):
+                raise AssertionError(f"{name}: the pod regions differ")
+            bound = 2 * block_max(gs).amax(dim=0) / 127
+            err = block_max(rs_[0] - (gs[0] + gs[1]))
+            ratio = float((err / torch.clamp_min(bound, 1e-30)).max())
+            if not bool((err <= bound * (1 + MESH_PSUM_SLACK)).all()):
+                raise AssertionError(
+                    f"{name}: compressed psum error {float(err.max())} "
+                    f"past one int8 step per summand ({ratio:.4f} of the "
+                    f"bound)")
+            if ratio >= worst:
+                worst, where = ratio, name
+            n_blocks += bound.numel()
+        n_elems += g[0].numel()
+        del g, red, gv, rv, gs, rs_, bound, err
+    out["psum"] = dict(ms=psum_ms, worst=worst, where=where,
+                       blocks=n_blocks, elements=n_elems)
+    say(f"psum_compressed over 'pod' of the two microbatches' bf16 "
+        f"gradients ({len(gr[0])} leaves, {n_elems} elements a region, "
+        f"{n_blocks} blocks of {QBLOCK}): both regions equal; each block's "
+        f"max |error| at most {worst:.4f} of 2 x block max / 127 (gate 1, "
+        f"slack {MESH_PSUM_SLACK}; largest at {where}); {psum_ms:.3f} ms by "
+        f"CUDA events over the leaves")
+    del gr
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # -- gate 2: manual against grouped, float32, the whole model --------
+    peaks["psum"] = torch.cuda.max_memory_allocated() - resident
+    torch.cuda.reset_peak_memory_stats()
+    p32 = ParamTree(tree_map(lambda p: p.detach().float(), params.tree()))
+    del params, ffn
+    gc.collect()
+    torch.cuda.empty_cache()
+    cfg32 = dataclasses.replace(cfg, dtype="float32")
+
+    def host_grads(c, ps, tok, lab):
+        """Loss and gradients, each gradient moved to the host as it lands
+        (two float32 gradient sets and a float32 backward do not fit on
+        the card beside each other)."""
+        got, hooks = {}, []
+        for name, p in ps.named_parameters():
+            p.grad = None
+
+            def hook(p, name=name):
+                got[name] = p.grad.cpu()
+                p.grad = None
+            hooks.append(p.register_post_accumulate_grad_hook(hook))
+        try:
+            loss = loss_fn(c, ps, tok, lab)
+            loss.backward()
+        finally:
+            for h in hooks:
+                h.remove()
+        return float(loss.detach()), got
+
+    before = calls[0]
+    moe_mod._grouped_manual = manual
+    try:
+        l_g, g_g = host_grads(cfg32, p32, tk[0], lb[0])
+        if calls[0] != before:
+            raise AssertionError("the grouped pass reached _grouped_manual")
+        with activate(mesh):
+            l_m, g_m = host_grads(cfg32, p32, tk[0], lb[0])
+        if calls[0] == before:
+            raise AssertionError("the meshed pass missed _grouped_manual")
+    finally:
+        moe_mod._grouped_manual = orig_manual
+    if set(g_g) != set(g_m) or len(g_g) != len(list(p32.parameters())):
+        raise AssertionError("a leaf has no gradient")
+    worst_abs, worst_rel, at = 0.0, 0.0, None
+    for name, gg in g_g.items():
+        gg = gg.to(dev)
+        d = float((g_m[name].to(dev) - gg).abs().max())
+        scale = float(gg.abs().max())
+        rel = d / scale if scale > 0 else (0.0 if d == 0 else float("inf"))
+        if not (d <= MESH_GRAD_TOL and rel <= MESH_GRAD_REL):
+            raise AssertionError(f"{name}: manual gradient max |diff| {d} "
+                                 f"({rel} of the leaf's max |g| {scale})")
+        if rel >= worst_rel:
+            worst_rel, at = rel, name
+        worst_abs = max(worst_abs, d)
+    if not abs(l_m - l_g) <= MESH_LOSS_TOL:
+        raise AssertionError(f"manual loss {l_m} against grouped {l_g}")
+    out["f32"] = dict(loss_manual=l_m, loss_grouped=l_g, worst_abs=worst_abs,
+                      worst_rel=worst_rel, where=at)
+    say(f"float32, one microbatch ({tk.shape[1]}x{seq}), the trained "
+        f"weights cast up: manual dispatch (mesh active) against the "
+        f"grouped path (none): loss {l_m:.7f} / {l_g:.7f} (|diff| "
+        f"{abs(l_m - l_g):.3e}, gate {MESH_LOSS_TOL}); gradient max |diff| "
+        f"{worst_abs:.3e} (gate {MESH_GRAD_TOL}), largest share of a leaf's "
+        f"max |g| {worst_rel:.3e} at {at} (gate {MESH_GRAD_REL})")
+    del p32, g_g, g_m, tk, lb, b
+    gc.collect()
+    torch.cuda.empty_cache()
+    peaks["float32"] = torch.cuda.max_memory_allocated() - resident
+    out["peaks"] = peaks
+    out["seconds"] = time.perf_counter() - t_phase
+    say(f"peak allocated above the {resident} bytes resident, bytes (GiB): "
+        + ", ".join(f"{k} {v} ({v / 2**30:.3f})" for k, v in peaks.items())
+        + f"; {out['seconds']:.1f} s")
     return out
 
 
@@ -3599,6 +4021,17 @@ def main() -> int:
     check_counts(got, _ZERO, "phase 6h (LM training: no JSPIM kernel)")
     log(f"[memory] phase 6h: resident at its start {resident_6h} bytes")
     log(f"[6h] LM training: {time.perf_counter() - t_6h:.1f} s")
+
+    # -- 6i. the mesh path of LM training ------------------------------------
+    gc.collect()
+    torch.cuda.empty_cache()
+    t_6i = time.perf_counter()
+    resident_6i = torch.cuda.memory_allocated()
+    got = counted(lambda: lm_mesh(args.seed + 9, smi, dev))[1]
+    check_counts(got, _ZERO, "phase 6i (the mesh path: no JSPIM kernel)")
+    log(f"[memory] phase 6i: resident at its start {resident_6i} bytes")
+    log(f"[6i] the mesh path of LM training: "
+        f"{time.perf_counter() - t_6i:.1f} s")
 
     # -- 8. numbers ---------------------------------------------------------------
     log(f"[memory] resident before the main path (tables, indexes): "

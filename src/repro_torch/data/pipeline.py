@@ -5,8 +5,9 @@ frequencies are Zipfian; sampling synthetic batches from a Zipf(s)
 marginal (with short repeated-phrase bursts) yields streams whose
 duplication statistics match what the JSPIM dedup-embedding path exploits.
 The draws are the reference's numpy draws, so a batch is the reference's
-bit for bit.  ``shard_batch`` places a batch on one device; a mesh comes
-with the multi-process slice (ROADMAP Queue 1 item 2d).
+bit for bit.  ``shard_batch`` places a batch on one device, or on a
+mesh's device with the reference's dp ``Placement`` (the batch dimension
+over the mesh's pod and data axes).
 """
 from __future__ import annotations
 
@@ -19,6 +20,8 @@ import torch
 
 from repro_torch.core.skew import zipf_weights
 from repro_torch.engine.table import resolve_device
+from repro_torch.launch.mesh import Placement, ShardMesh, dp_size
+from repro_torch.launch.sharding import place
 
 
 class ZipfTokenStream:
@@ -52,20 +55,31 @@ class ZipfTokenStream:
             step += 1
 
 
-def shard_batch(batch: dict[str, np.ndarray], mesh, microbatches: int = 1,
-                device=None) -> dict[str, torch.Tensor]:
+def shard_batch(batch: dict[str, np.ndarray], mesh: ShardMesh | None,
+                microbatches: int = 1, device=None) -> dict[str, torch.Tensor]:
     """Reshape to (microbatches, per, S) and place on the card unless
-    ``device`` names another.  A mesh raises ``NotImplementedError``."""
-    if mesh is not None:
-        raise NotImplementedError(
-            "shard_batch over a mesh comes with ROADMAP Queue 1 item 2d "
-            "(the multi-process slice)")
-    dev = resolve_device(device)
+    ``device`` names another.  With a mesh, each tensor lands on
+    ``mesh.device`` carrying ``Placement(mesh, (None, dp, None, ...))``,
+    ``dp`` being the mesh's pod and data axes (``device`` is unused); rows
+    that do not split over the dp regions raise ``ValueError``, as the
+    reference's ``device_put`` does."""
+    dev = mesh.device if mesh is not None else resolve_device(device)
     out = {}
     for k, v in batch.items():
         b = v.shape[0]
         v = v.reshape(microbatches, b // microbatches, *v.shape[1:])
-        out[k] = torch.from_numpy(np.ascontiguousarray(v)).to(dev)
+        t = torch.from_numpy(np.ascontiguousarray(v))
+        if mesh is None:
+            out[k] = t.to(dev)
+            continue
+        dp = tuple(a for a in ("pod", "data") if a in mesh.axis_names)
+        n_dp = dp_size(mesh)
+        if v.shape[1] % n_dp:
+            raise ValueError(f"{k}: {v.shape[1]} rows per microbatch do "
+                             f"not split over the {n_dp} dp regions of "
+                             f"{dp}")
+        out[k] = place(t, Placement(mesh, (None, dp) + (None,)
+                                    * (v.ndim - 2)))
     return out
 
 

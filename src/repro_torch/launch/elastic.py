@@ -1,19 +1,22 @@
-"""Elastic placement: fact columns and checkpoint leaves onto a mesh.
+"""Elastic placement: fact columns, parameters and optimizer state onto
+a mesh.
 
-PyTorch port of ``repro.launch.elastic`` (the fact-column half;
-``reshard_params`` and ``reshard_opt_state`` come with the LM
-scaffolding).  A spec is a tuple with one mesh axis name (or a tuple of
-names, or ``None``) per dimension, the counterpart of ``PartitionSpec``.
-A fact column sharded along an axis of ``n`` is one tensor of ``n`` equal
-regions (``launch/mesh.py``), so placing it is padding it to the region
-layout: it is never silently replicated.
+PyTorch port of ``repro.launch.elastic``.  A spec is a tuple with one
+mesh axis name (or a tuple of names, or ``None``) per dimension, the
+counterpart of ``PartitionSpec``.  A fact column sharded along an axis of
+``n`` is one tensor of ``n`` equal regions (``launch/mesh.py``), so
+placing it is padding it to the region layout: it is never silently
+replicated.  ``reshard_params`` re-derives every parameter's
+``Placement`` on a new mesh from the sharding rules, the restart path
+after a mesh shrinks or grows; values are unchanged.
 """
 from __future__ import annotations
 
 import numpy as np
 import torch
 
-from repro_torch.launch.mesh import ShardMesh
+from repro_torch.launch.mesh import Placement, ShardMesh
+from repro_torch.launch.sharding import activate, map_tree, param_specs, place
 
 
 def _axes_size(mesh: ShardMesh, axes) -> int:
@@ -95,3 +98,49 @@ def shard_fact_columns(cols, mesh: ShardMesh, *, axis: str = "data",
             buf[:, :per] = flat.view(ndev, per)
         out[k] = buf.view(-1)
     return out, cap, per
+
+
+def _alias(t: torch.Tensor, placement: Placement) -> torch.Tensor:
+    """A new tensor object over ``t``'s storage (a copy only when the
+    mesh lives on another device) carrying ``placement``; ``t`` keeps its
+    own placement."""
+    return place(t.detach(), placement)
+
+
+def reshard_params(params, new_mesh: ShardMesh):
+    """Place a (restored) params tree or ``ParamTree`` onto a new mesh
+    per the rules, sanitized with ``on_indivisible="replicate"``.  Returns
+    the same kind of tree; each leaf shares its storage with the input's
+    on the same device and carries its ``Placement`` on ``new_mesh``."""
+    from repro_torch.models.transformer import ParamTree
+
+    with activate(new_mesh):
+        places = map_tree(lambda _, leaf, s: Placement(
+            new_mesh, _sanitize(s, leaf.shape, new_mesh)),
+            params, param_specs(params))
+    out = map_tree(lambda _, leaf, pl: _alias(leaf, pl), params, places)
+    if isinstance(params, torch.nn.Module):
+        out = ParamTree(out)    # new Parameter objects over the same storage
+        map_tree(lambda _, leaf, pl: setattr(leaf, "placement", pl), out,
+                 places)
+    return out
+
+
+def reshard_opt_state(opt_state: dict, params_resharded) -> dict:
+    """Moments mirror the parameter placements (float32 moments); int8
+    ``{q, s}`` moments and ``step`` are left as they are, as the reference
+    leaves them."""
+    out = dict(opt_state)
+    for k in ("m", "v", "err"):
+        if k in out and not _has_quantized(out[k]):
+            out[k] = map_tree(lambda _, leaf, p: _alias(leaf, p.placement),
+                              out[k], params_resharded)
+    return out
+
+
+def _has_quantized(tree) -> bool:
+    if isinstance(tree, dict):
+        return "q" in tree or any(_has_quantized(v) for v in tree.values())
+    if isinstance(tree, list):
+        return any(_has_quantized(v) for v in tree)
+    return False

@@ -8,8 +8,9 @@ region lives on, and a sharded column is one tensor whose
 ``view(n, -1)[r]`` is shard ``r``.  The sharded engine
 (``engine/shard.py``) works region by region, so its physical layout is
 the reference's bit for bit.  Placing the regions on several cards waits
-for a machine with more than one.  ``make_production_mesh`` belongs to the
-LM scaffolding and is not ported yet.
+for a machine with more than one.  ``make_production_mesh`` builds the
+dry-run's 256- and 512-chip meshes, on ``meta`` by default: nothing is
+allocated on them.
 """
 from __future__ import annotations
 
@@ -58,6 +59,15 @@ def _mesh(shape, axes, device) -> ShardMesh:
 
     return ShardMesh(tuple(int(n) for n in shape), tuple(axes),
                      resolve_device(device))
+
+
+def make_production_mesh(*, multi_pod: bool = False,
+                         device="meta") -> ShardMesh:
+    """Single pod: 16x16 = 256 chips (data, model).
+    Multi-pod: 2x16x16 = 512 chips (pod, data, model)."""
+    shape = (2, 16, 16) if multi_pod else (16, 16)
+    axes = ("pod", "data", "model") if multi_pod else ("data", "model")
+    return _mesh(shape, axes, device)
 
 
 def make_host_mesh(shape=(2, 2), axes=("data", "model"),

@@ -1,13 +1,16 @@
-"""Training launcher: --arch <id> on one device.
+"""Training launcher: --arch <id> on one device or a host region mesh.
 
   PYTHONPATH=src python -m repro_torch.launch.train --arch qwen3-4b \
       --smoke --device cpu --steps 50 --batch 8 --seq 128
   PYTHONPATH=src python -m repro_torch.launch.train --arch mamba2-780m \
       --steps 100 --batch 8 --microbatches 2 --seq 512
+  PYTHONPATH=src python -m repro_torch.launch.train --arch qwen3-4b \
+      --smoke --device cpu --mesh host2x2 --steps 4
 
-Runs on the card unless ``--device`` names another: make state ->
-``Trainer.run()`` with auto-resume from ``--ckpt-dir``.  ``--mesh
-host2x2`` comes with the multi-process slice (ROADMAP Queue 1 item 2d).
+Runs on the card unless ``--device`` names another: make mesh -> make
+state -> ``Trainer.run()`` with auto-resume from ``--ckpt-dir``.  ``--mesh
+host2x2`` is a (2, 2) ``("data", "model")`` region mesh on that device;
+as in the reference, the Trainer shards each batch over it.
 """
 from __future__ import annotations
 
@@ -16,6 +19,7 @@ import os
 import tempfile
 
 from repro_torch.configs import get_config, smoke
+from repro_torch.launch.mesh import make_host_mesh
 from repro_torch.optim.adamw import OptConfig
 from repro_torch.train.trainer import Trainer, TrainerConfig
 
@@ -40,17 +44,16 @@ def main(argv=None):
                     help="torch device (default: the CUDA card)")
     args = ap.parse_args(argv)
 
-    if args.mesh == "host2x2":
-        raise NotImplementedError(
-            "--mesh host2x2 comes with ROADMAP Queue 1 item 2d (the "
-            "multi-process slice)")
     cfg = smoke(args.arch) if args.smoke else get_config(args.arch)
+    mesh = None
+    if args.mesh == "host2x2":
+        mesh = make_host_mesh(device=args.device)
     opt = OptConfig(lr=args.lr, warmup_steps=max(2, args.steps // 20),
                     total_steps=args.steps, moment_dtype=args.moment_dtype)
     tc = TrainerConfig(steps=args.steps, global_batch=args.batch,
                        microbatches=args.microbatches, seq_len=args.seq,
                        ckpt_every=args.ckpt_every, ckpt_dir=args.ckpt_dir)
-    res = Trainer(cfg, opt, tc, device=args.device).run()
+    res = Trainer(cfg, opt, tc, mesh=mesh, device=args.device).run()
     print(f"[train] done; final loss {res['losses'][-1]:.4f}; "
           f"stragglers {res['straggler_events']}")
     return res

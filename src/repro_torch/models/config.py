@@ -5,8 +5,9 @@ imports nothing of the reference).  A model is a repeating ``pattern`` of
 (mixer, ffn) blocks over ``n_layers`` — dense transformers, MoE, SSM
 (Mamba2 SSD), hybrid (Jamba), VLM cross-attention, and audio-token decoders
 are all instances.  The sharding knobs (``fsdp_axes``, ``moe_groups``,
-``sp``) and ``remat`` are kept for parity; on one device only
-``moe_groups`` changes what is computed.
+``sp``) and ``remat`` are kept for parity; of them only ``moe_groups``
+(and, under an active mesh, whether the MoE takes its manual dispatch)
+changes what is computed.
 """
 from __future__ import annotations
 

@@ -10,10 +10,10 @@ the error-feedback residual, when ``grad_quant_bits`` is set), ``m`` and
 ``v`` shaped like the parameters' dict/list tree, an int8 moment a
 ``{"q": int8, "s": float32}`` dict.  ``apply_updates`` writes parameters
 and moments in place under ``no_grad`` (each ``nn.Parameter`` keeps its
-identity), one leading slice of a leaf at a time: the reference's
-whole-leaf float32 temporaries would be GBs each for a stacked leaf at
-full width.  A block lies along the last dim, so slicing the leading dim
-quantizes the same blocks bit for bit.
+identity), a slice of a leaf's rows (its leading dims flattened) at a
+time: the reference's whole-leaf float32 temporaries would be GBs each
+for a stacked leaf at full width.  A block lies along the last dim, so
+slicing the rows quantizes the same blocks bit for bit.
 """
 from __future__ import annotations
 
@@ -127,12 +127,22 @@ def walk(tree, *others) -> Iterator[tuple]:
         yield (tree, *others)
 
 
+def _rows(x, last: int):
+    """A view of ``x`` (or of an int8 moment's ``q`` and ``s``) with its
+    leading dims flattened into rows of the leaf's ``last`` dim: a view,
+    so that writes land in ``x``."""
+    if isinstance(x, dict):
+        return {k: v.view(-1, *v.shape[-2:]) for k, v in x.items()}
+    return x.view(-1, last)
+
+
 def _slices(p: torch.Tensor) -> list:
-    """Index expressions covering ``p`` a leading slice at a time (the
-    whole leaf below 2 dims, where dim 0 is the block dim)."""
+    """Index expressions covering ``p`` (rows of its last dim, as
+    ``_rows`` lays it out) about ``SLICE_ELEMS`` elements at a time; the
+    whole leaf below 2 dims, where dim 0 is the block dim."""
     if p.dim() < 2:
         return [...]
-    rows = max(1, SLICE_ELEMS // max(1, p[0].numel()))
+    rows = max(1, SLICE_ELEMS // max(1, p.shape[-1]))
     return [slice(i, i + rows) for i in range(0, p.shape[0], rows)]
 
 
@@ -163,6 +173,8 @@ def global_norm(tree) -> torch.Tensor:
     for (x,) in walk(tree):
         if x is None:
             continue
+        if x.dim() >= 2:
+            x = x.reshape(-1, x.shape[-1])
         for sl in _slices(x):
             c = x[sl].to(torch.float32)
             part = torch.sum(c * c)
@@ -191,6 +203,11 @@ def apply_updates(params, grads, state: dict, cfg: OptConfig):
 
     for p, g, m, v, e in walk(as_tree(params), grads, state["m"],
                               state["v"], err):
+        if p.dim() >= 2:
+            last = p.shape[-1]
+            p, m, v = _rows(p, last), _rows(m, last), _rows(v, last)
+            g = None if g is None else g.reshape(-1, last)
+            e = None if e is None else _rows(e, last)
         for sl in _slices(p):
             pc = p[sl]
             gc = (g[sl].to(torch.float32) if g is not None

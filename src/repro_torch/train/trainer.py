@@ -1,6 +1,6 @@
 """Fault-tolerant training loop.
 
-PyTorch port of ``repro.train.trainer``, on one device:
+PyTorch port of ``repro.train.trainer``:
  * **checkpoint/restart**: atomic rotating checkpoints of (params, opt
    state); ``run()`` auto-resumes from the newest one, so a killed job
    restarted with the same command continues exactly (the data stream is
@@ -12,9 +12,11 @@ PyTorch port of ``repro.train.trainer``, on one device:
    median; steps slower than ``straggler_factor`` x median are counted and
    surfaced in the result.  A step's time runs from its batch to
    ``float(loss)``, which waits for the device.
-
-A mesh (the reference's elastic re-sharding onto surviving devices) comes
-with the multi-process slice (ROADMAP Queue 1 item 2d).
+ * **mesh**: ``Trainer(mesh=)`` places each batch on the mesh
+   (``data.shard_batch``), as the reference does; the model takes the
+   mesh's paths (the manual MoE dispatch) where the caller activates it
+   (``launch.sharding.activate``), and ``launch/elastic.py`` re-places a
+   restored state onto another mesh.
 """
 from __future__ import annotations
 
@@ -54,11 +56,8 @@ class Trainer:
     def __init__(self, cfg: ModelConfig, opt: OptConfig, tc: TrainerConfig,
                  mesh=None, log_fn: Callable[[str], None] = print,
                  device=None):
-        if mesh is not None:
-            raise NotImplementedError(
-                "a Trainer over a mesh comes with ROADMAP Queue 1 item 2d "
-                "(the multi-process slice)")
-        self.device = resolve_device(device)
+        self.device = mesh.device if mesh is not None else \
+            resolve_device(device)
         self.cfg, self.opt, self.tc, self.mesh = cfg, opt, tc, mesh
         self.log = log_fn
         self.ckpt = CheckpointManager(tc.ckpt_dir, keep=tc.keep_ckpts)

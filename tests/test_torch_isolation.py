@@ -111,6 +111,27 @@ res = Trainer(smoke("mamba2-780m"), OptConfig(moment_dtype="int8",
                             ckpt_dir=tempfile.mkdtemp()),
               log_fn=lambda s: None, device="cpu").run()
 assert len(res["losses"]) == 2
+import dataclasses
+import repro_torch.launch.dryrun, repro_torch.launch.roofline
+from repro_torch.launch import make_host_mesh
+from repro_torch.launch.dryrun import run_cell
+from repro_torch.launch.elastic import reshard_params
+from repro_torch.launch.sharding import activate, param_specs
+from repro_torch.optim import psum_compressed
+assert run_cell("qwen3-4b", "decode_32k", True, verbose=False)["status"] == "ok"
+mesh = make_host_mesh((2, 2, 2), ("pod", "data", "model"), device="cpu")
+kimi = dataclasses.replace(smoke("kimi-k2-1t-a32b"), moe_groups=4)
+with activate(mesh):
+    res = Trainer(kimi, OptConfig(), TrainerConfig(
+        steps=1, global_batch=4, seq_len=16, ckpt_dir=tempfile.mkdtemp()),
+        mesh=mesh, log_fn=lambda s: None).run()
+    assert param_specs(res["params"])["embed"]["tokens"] == (
+        ("pod", "data"), "model")
+re = reshard_params(res["params"], make_host_mesh(device="cpu"))
+assert all(torch.equal(a, b) for a, b in zip(res["params"].parameters(),
+                                             re.parameters()))
+g = torch.ones(2, 3, 300)
+assert torch.equal(psum_compressed([g], "pod", mesh)[0], 2 * g)
 assert not any(m.split(".")[0] in ("jax", "jaxlib", "repro", "ml_dtypes")
                for m in sys.modules)
 """

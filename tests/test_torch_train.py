@@ -25,6 +25,7 @@ from repro.data import ZipfTokenStream as JZipf
 from repro_torch.checkpoint.manager import _flatten
 from repro_torch.configs import smoke
 from repro_torch.data import Prefetcher, ZipfTokenStream, shard_batch
+from repro_torch.launch import Placement, make_host_mesh
 from repro_torch.models import loss_fn
 from repro_torch.optim import OptConfig, apply_updates, init_opt_state
 from repro_torch.optim.adamw import tree_map, walk
@@ -166,8 +167,12 @@ def test_shard_batch_microbatch_layout():
     assert out["tokens"].dtype == torch.int32
     assert torch.equal(out["tokens"].reshape(8, 16),
                        torch.from_numpy(b["tokens"]))
-    with pytest.raises(NotImplementedError, match="2d"):
-        shard_batch(b, mesh=object(), microbatches=4, device="cpu")
+    mesh = make_host_mesh((2, 2), ("data", "model"), device="cpu")
+    out = shard_batch(b, mesh=mesh, microbatches=4)
+    assert out["tokens"].shape == (4, 2, 16)
+    assert out["tokens"].placement == Placement(mesh, (None, ("data",), None))
+    assert torch.equal(out["tokens"].reshape(8, 16),
+                       torch.from_numpy(b["tokens"]))
 
 
 def test_prefetcher_order():
@@ -186,15 +191,25 @@ def test_train_cli_smoke_cpu(tmp_path, capsys):
     assert len(res["losses"]) == 4 and np.isfinite(res["losses"]).all()
     assert "[train] done; final loss" in capsys.readouterr().out
     assert (tmp_path / "ckpt" / "step_00000004").is_dir()
-    with pytest.raises(NotImplementedError, match="2d"):
-        main(["--arch", "qwen3-4b", "--smoke", "--device", "cpu",
-              "--mesh", "host2x2"])
+    res = main(["--arch", "qwen3-4b", "--smoke", "--device", "cpu",
+                "--mesh", "host2x2", "--steps", "2", "--batch", "4",
+                "--seq", "16", "--ckpt-dir", str(tmp_path / "mesh")])
+    assert len(res["losses"]) == 2 and np.isfinite(res["losses"]).all()
 
 
-def test_trainer_rejects_a_mesh():
-    with pytest.raises(NotImplementedError, match="2d"):
-        Trainer(smoke("qwen3-4b"), OptConfig(), TrainerConfig(),
-                mesh=object(), device="cpu")
+def test_trainer_rejects_a_mesh(tmp_path):
+    """A mesh whose dp regions do not divide a microbatch's rows is
+    refused at the first batch, as the reference's ``device_put`` refuses
+    it; one that divides them trains on its device."""
+    cfg = smoke("qwen3-4b")
+    tc = TrainerConfig(steps=1, global_batch=6, microbatches=2, seq_len=16,
+                       ckpt_dir=str(tmp_path))
+    mesh = make_host_mesh((2, 2), ("data", "model"), device="cpu")
+    with pytest.raises(ValueError, match="dp regions"):
+        Trainer(cfg, OptConfig(), tc, mesh=mesh, log_fn=lambda s: None).run()
+    res = Trainer(cfg, OptConfig(), dataclasses.replace(tc, global_batch=4),
+                  mesh=mesh, log_fn=lambda s: None).run()
+    assert res["params"].embed.tokens.device == mesh.device
 
 
 def test_apply_updates_keeps_parameter_identity():
