@@ -29,6 +29,10 @@ keep: the plain ``probe`` by default, or the ``probe_rows`` kernel
 reference's two ``lax.cond`` overflow fallbacks become a host branch on
 one scalar (one device sync per probe), taken only where the capacity
 could overflow at all.
+
+``overlay_delta`` is spanned as ``probe.overlay`` (``repro_torch.trace``,
+off unless a run enables the recorder); it takes its ``dim`` from the
+span open around it.
 """
 from __future__ import annotations
 
@@ -36,6 +40,7 @@ from typing import Callable, NamedTuple
 
 import torch
 
+from repro_torch import trace
 from repro_torch.core import dedup
 from repro_torch.core.delta import DeltaTable, delta_lookup
 from repro_torch.core.hash_table import EMPTY_KEY, JSPIMTable, hash_bucket
@@ -203,8 +208,9 @@ def overlay_delta(pr: ProbeResult, delta: DeltaTable,
     are the probe keys in the delta's key space (raw fact keys at the
     engine layer, where the main table is probed with dictionary codes).
     """
-    hit, word = delta_lookup(delta, delta_keys)
-    return unpack_words(torch.where(hit, word, pack_words(pr)))
+    with trace.span("probe.overlay"):
+        hit, word = delta_lookup(delta, delta_keys)
+        return unpack_words(torch.where(hit, word, pack_words(pr)))
 
 
 def probe_with_delta(table: JSPIMTable, delta: DeltaTable,

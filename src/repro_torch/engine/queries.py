@@ -75,11 +75,31 @@ the cost model weighs a checkpoint (``_wal_publish``).  ``open(root)``
 recovers an engine from the newest verified checkpoint plus the log's
 replay.  ``close()`` refuses every later mutation; queries and held
 snapshots keep answering.
+
+Counters: ``cache_info()`` (probe-cache hits, misses, invalidations),
+``fact_append_info()`` (appends, tail extensions and re-probes, skew
+re-plans), ``ingest_info()`` (ingest batches, ``compactions``, per-dim
+delta occupancy) and ``snapshot_info()`` (snapshots taken and live, pinned
+copies, and ``snapshot_reprobes``: the lazy probes snapshots made of
+dimensions the engine had not cached when they froze, counted here so
+that the count outlives the snapshots).
+
+Spans (``repro_torch.trace``; the recorder is off by default and a site
+then costs one flag check): ``engine.append_fact_rows``,
+``engine.append_rows`` and ``engine.ingest`` around the outermost such
+call, ``engine.extend_probe`` around each cached dimension's tail
+extension in an append (with the planner's ``decision``),
+``engine.compact`` around each merge (with its ``flavor`` and the
+``est_merge_s`` of the plan that chose it), and ``engine.lock_wait`` where
+acquiring the engine lock (``site``: the mutation, ``snapshot``,
+``release``, ``prepare_compact``, ``publish_compact``) waited
+``trace.LOCK_WAIT_MIN_S`` or more.
 """
 from __future__ import annotations
 
 import dataclasses
 import functools
+import inspect
 import threading
 import weakref
 from typing import Callable
@@ -87,6 +107,7 @@ from typing import Callable
 import numpy as np
 import torch
 
+from repro_torch import trace
 from repro_torch.core import hash_table as _ht
 from repro_torch.core.delta import TOMBSTONE, delta_is_empty, delta_stats
 from repro_torch.core.dictionary import encode
@@ -488,6 +509,28 @@ class _QueryRunner:
                                      probes) for n in names}
 
 
+# the mutations spanned as ``engine.<name>``, at their outermost call
+_WRITE_SPANS = frozenset({"engine.append_fact_rows", "engine.append_rows",
+                          "engine.ingest"})
+
+
+def _write_attrs(sig: inspect.Signature, args: tuple, kwargs: dict) -> dict:
+    """A write span's attributes from the call's arguments: ``dim``,
+    ``op`` and ``rows`` (the batch's length) where the call has them."""
+    bound = sig.bind(*args, **kwargs)
+    bound.apply_defaults()
+    arg = bound.arguments
+    out = {k: arg[k] for k in ("dim", "op") if k in arg}
+    batch = arg.get("rows", arg.get("keys"))
+    if isinstance(batch, dict):
+        batch = next(iter(batch.values()), ())
+    try:
+        out["rows"] = len(batch)
+    except TypeError:
+        pass
+    return out
+
+
 def _mutates(fn):
     """Mutation-method guard: the engine's reentrant lock, so a snapshot
     (a serving tier's refresh) or a background compaction's publish never
@@ -496,10 +539,23 @@ def _mutates(fn):
     log.  Reentrant because mutations compose (``append_rows`` drives
     ``ingest``, which may drive ``compact``).  A mutation that raises
     leaves no staged event behind: a later publish would deliver a batch
-    the engine never applied."""
+    the engine never applied.  With the recorder on, the outermost
+    ``append_fact_rows`` / ``append_rows`` / ``ingest`` is spanned, and a
+    wait for the lock recorded."""
+    name = f"engine.{fn.__name__}"
+    sig = inspect.signature(fn) if name in _WRITE_SPANS else None
+
     @functools.wraps(fn)
     def wrapper(self, *a, **k):
-        with self._mu:
+        sp = trace.NO_SPAN
+        if sig is not None and trace.enabled() and \
+                not trace.within(_WRITE_SPANS):
+            sp = trace.span(name)
+        with sp, trace.locked(self._mu, fn.__name__):
+            if sp is not trace.NO_SPAN:
+                # named under the lock: work between a writer's two calls
+                # would let a waiting snapshot in between them
+                sp.set(**_write_attrs(sig, (self, *a), k))
             self._check_open()
             try:
                 return fn(self, *a, **k)
@@ -597,6 +653,10 @@ class SSBEngine(_QueryRunner):
         self._snapshots: "weakref.WeakSet" = weakref.WeakSet()
         self._snapshots_taken = 0
         self._pin_copies = 0       # in-place writes a pin turned into copies
+        # lazy probes snapshots made (their own lock: a snapshot counts on
+        # a serving thread, and the engine lock may be held by a writer)
+        self._snapshot_reprobes = 0
+        self._count_mu = threading.Lock()
         self._fact_gen = 0         # the fact table's capacity buffers
         self._cache_gens: dict[str, int] = {}  # each dim's cached probes
         self._index_gens: dict[str, int] = {}  # each dim's main-table planes
@@ -735,7 +795,8 @@ class SSBEngine(_QueryRunner):
         snapshot (``release()``, a ``with`` block, or dropping it) to
         retire its pins.
         """
-        with self._mu:  # a freeze never interleaves with a mutation
+        # a freeze never interleaves with a mutation
+        with trace.locked(self._mu, "snapshot"):
             snap = self._make_snapshot()
             self._snapshots.add(snap)
             self._snapshots_taken += 1
@@ -767,13 +828,19 @@ class SSBEngine(_QueryRunner):
         return any(s._pin_index_gens.get(dim) == g
                    for s in self._live_snapshots())
 
+    def _count_snapshot_reprobe(self) -> None:
+        with self._count_mu:
+            self._snapshot_reprobes += 1
+
     def snapshot_info(self) -> dict:
-        """Epoch, snapshot and pin counters."""
+        """Epoch, snapshot and pin counters, and the lazy probes snapshots
+        made (``snapshot_reprobes``)."""
         return {"epoch": self._epoch,
                 "live_snapshots": len(self._live_snapshots()),
                 "snapshots_taken": self._snapshots_taken,
                 "pin_copies": self._pin_copies,
-                "fact_gen": self._fact_gen}
+                "fact_gen": self._fact_gen,
+                "snapshot_reprobes": self._snapshot_reprobes}
 
     # -- write-ahead log and mutation hooks ----------------------------------
     def _wal_log(self, kind: str, meta: dict | None = None,
@@ -1023,7 +1090,7 @@ class SSBEngine(_QueryRunner):
             self._plan_dim(dim)
         plan = self.compaction_plan(dim)
         if auto_compact and plan.compact:
-            self.compact(dim)
+            self.compact(dim, _plan=plan)
         if _wal:
             self._wal_publish()
         return plan
@@ -1141,43 +1208,53 @@ class SSBEngine(_QueryRunner):
             self._wal_publish()
             return report
         for dim in sorted(self._probe_cache):
-            ap = self._fact_append_plan(dim, bp, n0)
-            if not (extend_cache and ap.extend):
-                self.invalidate_probe_cache(dim)
-                self._tail_reprobes += 1
-                report["dims"][dim] = ap.reason if extend_cache \
-                    else "invalidated"
-                continue
-            found, row = self._probe_cache[dim]
-            owned = dim in self._cache_owned
-            pinned_copy = owned and self._cache_pinned(dim)
-            if pinned_copy:  # a live snapshot reads them: splice a copy
-                owned = False
-            fresh = not owned  # a copying splice makes a new generation
-            if found.shape[0] != grown.n_physical:  # capacity grew: re-pad
-                pad = grown.n_physical - found.shape[0]
-                found = torch.cat([found, found.new_zeros(pad)])
-                row = torch.cat([row, row.new_full((pad,), -1)])
-                # fresh buffers, nobody else holds them (the concatenation
-                # copied, pinned or not)
-                owned, fresh, pinned_copy = True, True, False
-            if pinned_copy:
-                self._pin_copies += 1
-            # the padded FK window just written into the fact column
-            fk_tail = grown[FACT_FK[dim]].narrow(0, n0, bp)
-            self._probe_cache[dim] = extend_cached_probe(
-                effective_index(self.indexes[dim]), found, row, fk_tail, n0,
-                self._hot_codes.get(dim), impl=self.probe_impl,
-                plan=self.plans.get(dim), owned=owned)
-            self._probe_epoch[dim] = self._fact_epoch
-            self._cache_owned.add(dim)
-            if fresh:
-                self._cache_gens[dim] = self._cache_gens.get(dim, 0) + 1
-            self._tail_extensions += 1
-            report["dims"][dim] = "extended"
+            with trace.span("engine.extend_probe", dim=dim) as sp:
+                self._extend_cached(dim, grown, n0, bp, extend_cache, report)
+                sp.set(decision=report["dims"][dim])
         report["skew_replanned"] = self._maybe_replan_fact_skew()
         self._wal_publish()
         return report
+
+    def _extend_cached(self, dim: str, grown: Table, n0: int, bp: int,
+                       extend_cache: bool, report: dict) -> None:
+        """One cached dimension's part of ``append_fact_rows``: extend its
+        probes over the padded tail, or drop them where the planner (or
+        ``extend_cache=False``) says so; the decision goes into
+        ``report["dims"]``."""
+        ap = self._fact_append_plan(dim, bp, n0)
+        if not (extend_cache and ap.extend):
+            self.invalidate_probe_cache(dim)
+            self._tail_reprobes += 1
+            report["dims"][dim] = ap.reason if extend_cache \
+                else "invalidated"
+            return
+        found, row = self._probe_cache[dim]
+        owned = dim in self._cache_owned
+        pinned_copy = owned and self._cache_pinned(dim)
+        if pinned_copy:  # a live snapshot reads them: splice a copy
+            owned = False
+        fresh = not owned  # a copying splice makes a new generation
+        if found.shape[0] != grown.n_physical:  # capacity grew: re-pad
+            pad = grown.n_physical - found.shape[0]
+            found = torch.cat([found, found.new_zeros(pad)])
+            row = torch.cat([row, row.new_full((pad,), -1)])
+            # fresh buffers, nobody else holds them (the concatenation
+            # copied, pinned or not)
+            owned, fresh, pinned_copy = True, True, False
+        if pinned_copy:
+            self._pin_copies += 1
+        # the padded FK window just written into the fact column
+        fk_tail = grown[FACT_FK[dim]].narrow(0, n0, bp)
+        self._probe_cache[dim] = extend_cached_probe(
+            effective_index(self.indexes[dim]), found, row, fk_tail, n0,
+            self._hot_codes.get(dim), impl=self.probe_impl,
+            plan=self.plans.get(dim), owned=owned)
+        self._probe_epoch[dim] = self._fact_epoch
+        self._cache_owned.add(dim)
+        if fresh:
+            self._cache_gens[dim] = self._cache_gens.get(dim, 0) + 1
+        self._tail_extensions += 1
+        report["dims"][dim] = "extended"
 
     def _fact_batch(self, rows) -> tuple[dict[str, np.ndarray], int]:
         """``append_fact_rows``' validated batch: every lineorder column,
@@ -1298,7 +1375,8 @@ class SSBEngine(_QueryRunner):
             backend=self.device.type, pinned=self._index_pinned(dim))
 
     @_mutates
-    def compact(self, dim: str) -> None:
+    def compact(self, dim: str, *, _plan: CompactionPlan | None = None
+                ) -> None:
         """Fold ``dim``'s delta into its main table.
 
         With no buffered ops this is a strict no-op: no epoch, no cache
@@ -1308,7 +1386,9 @@ class SSBEngine(_QueryRunner):
         old ones, and ``pin_copies`` counts it); otherwise the **in-place**
         flavor writes the touched bucket rows into the planes, so an index
         object taken from ``engine.indexes`` before the call must not be
-        read after it: take a snapshot to keep reading it.
+        read after it: take a snapshot to keep reading it.  ``_plan`` is
+        internal: the decision of an ``ingest`` that compacts, whose
+        estimate a traced merge records.
         """
         idx = self.indexes[dim]
         if delta_is_empty(idx.delta):
@@ -1322,7 +1402,11 @@ class SSBEngine(_QueryRunner):
         pinned = self._index_pinned(dim)
         if pinned:
             self._pin_copies += 1
-        self.indexes[dim] = compact_index(idx, donate=not pinned)
+        # a merge no plan chose (a direct call) records no estimate
+        est = {} if _plan is None else {"est_merge_s": _plan.est_merge_s}
+        with trace.span("engine.compact", dim=dim,
+                        flavor="swap" if pinned else "in_place", **est):
+            self.indexes[dim] = compact_index(idx, donate=not pinned)
         self._publish_compaction(dim)
         self._wal_publish()
 
@@ -1346,7 +1430,7 @@ class SSBEngine(_QueryRunner):
         can fold while the serving path answers.  Returns a token for
         ``publish_compact``, or ``None`` when there is nothing to fold.
         """
-        with self._mu:
+        with trace.locked(self._mu, "prepare_compact"):
             self._check_open()
             if dim not in self.indexes:
                 raise ValueError(f"dim: unknown dimension {dim!r} (have "
@@ -1354,7 +1438,9 @@ class SSBEngine(_QueryRunner):
             idx = self.indexes[dim]
         if delta_is_empty(idx.delta):
             return None
-        return dim, idx, compact_index(idx, donate=False)
+        # no plan chose this merge: its span has no estimate
+        with trace.span("engine.compact", dim=dim, flavor="swap"):
+            return dim, idx, compact_index(idx, donate=False)
 
     def publish_compact(self, prepared) -> bool:
         """Publish a staged merge as one epoch.  Returns ``False`` (the
@@ -1365,7 +1451,7 @@ class SSBEngine(_QueryRunner):
         if prepared is None:
             return False
         dim, source, merged = prepared
-        with self._mu:
+        with trace.locked(self._mu, "publish_compact"):
             self._check_open()
             if self.indexes[dim] is not source:
                 return False

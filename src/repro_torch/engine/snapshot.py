@@ -36,6 +36,7 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch import trace
 from repro_torch.engine.join import effective_index, sharded_probe_program
 from repro_torch.engine.queries import (DIM_PK, FACT_FK, SSBEngine,
                                         _QueryRunner)
@@ -105,7 +106,7 @@ class EpochSnapshot(_QueryRunner):
         if self.engine is not None:
             # under the engine lock: a mutation on another thread may be
             # iterating the snapshot set
-            with self.engine._mu:
+            with trace.locked(self.engine._mu, "release"):
                 self.engine._snapshots.discard(self)
         self.engine = None
         self.tables = {}
@@ -139,12 +140,15 @@ class EpochSnapshot(_QueryRunner):
         """``(found, dim_row)`` for one dimension at this epoch.  Entries
         frozen from the engine are served as they are; a dimension the
         engine had not cached is probed against the snapshot's own image
-        and kept here (the engine's cache is never touched)."""
+        and kept here (the engine's cache is never touched); the engine
+        counts it in ``snapshot_info()["snapshot_reprobes"]``."""
         self._check_live()
         hit = self._probe_cache.get(dim)
         if hit is not None:
             return hit
-        out = self._probe_cache[dim] = self._join(dim)
+        self.engine._count_snapshot_reprobe()
+        with trace.span("snapshot.reprobe", dim=dim):
+            out = self._probe_cache[dim] = self._join(dim)
         return out
 
     def warm_cache(self, dims=None) -> None:

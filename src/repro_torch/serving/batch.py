@@ -27,6 +27,11 @@ Flavors:
   deliberately not the batched code, so a fault in the batched path is
   never re-entered by its own fallback.
 
+Spans (``repro_torch.trace``, off unless a run enables the recorder):
+``batch.probes`` around the probes, ``batch.tail`` around each group's
+tail (each request's ``_filter_aggregate`` on the composed flavor) and
+``batch.readback`` around the copies of the answers to the host.
+
 All flavors read only the ``_QueryRunner`` surface (``probe_dim`` /
 ``tables`` / ``indexes``), so an ``EpochSnapshot`` serves batches exactly
 as the engine would.
@@ -36,6 +41,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from repro_torch import trace
 from repro_torch.core.policy import ExecutionPolicy
 from repro_torch.durability.faults import NULL_FAULTS
 from repro_torch.engine.join import effective_index, found_rows, lookup
@@ -170,15 +176,19 @@ class BatchRunner:
                 faults.hit(f"kernel_composed:{name}")
                 if operands is None:
                     fact_cols, dim_cols = self._cols(runner, name)
-                    operands = (fact_cols, dim_cols,
-                                self._probes(runner, name, fact_cols, False))
-                total, groups = _filter_aggregate(
-                    pq.bind(tuple(int(x) for x in p)), *operands)
-                out.append((int(total), groups.cpu().numpy()))
+                    with trace.span("batch.probes", flavor=flavor):
+                        probes = self._probes(runner, name, fact_cols, False)
+                    operands = (fact_cols, dim_cols, probes)
+                with trace.span("batch.tail", width=1):
+                    total, groups = _filter_aggregate(
+                        pq.bind(tuple(int(x) for x in p)), *operands)
+                with trace.span("batch.readback", width=1):
+                    out.append((int(total), groups.cpu().numpy()))
             return out
         faults.hit(f"kernel_{flavor}:{name}")
         fact_cols, dim_cols = self._cols(runner, name)
-        probes = self._probes(runner, name, fact_cols, flavor == "mega")
+        with trace.span("batch.probes", flavor=flavor):
+            probes = self._probes(runner, name, fact_cols, flavor == "mega")
         b = len(params_list)
         params = torch.as_tensor(np.asarray(params_list, np.int32),
                                  device=runner.tables["lineorder"].device)
@@ -186,10 +196,12 @@ class BatchRunner:
         group = max(1, MAX_BATCH_CELLS // max(1, n))
         totals, groups = [], []
         for i in range(0, b, group):
-            t, g = _batched_tail(pq, fact_cols, dim_cols, probes,
-                                 params[i:i + group])
+            with trace.span("batch.tail", width=min(group, b - i)):
+                t, g = _batched_tail(pq, fact_cols, dim_cols, probes,
+                                     params[i:i + group])
             totals.append(t)
             groups.append(g)
-        totals = torch.cat(totals).cpu().numpy()
-        groups = torch.cat(groups).cpu().numpy()
+        with trace.span("batch.readback", width=b):
+            totals = torch.cat(totals).cpu().numpy()
+            groups = torch.cat(groups).cpu().numpy()
         return [(int(totals[i]), groups[i]) for i in range(b)]

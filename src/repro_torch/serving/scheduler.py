@@ -31,6 +31,16 @@ wrong** — every ``ok`` response is bit-identical to the single-threaded
 oracle at the epoch the response reports (chaos-tested in
 ``tests/test_torch_serving_chaos.py``).
 
+Counters: ``stats`` (and ``info()``) count requests by outcome
+(``submitted``, ``completed``, ``rejected``, ``timed_out``, ``failed``),
+``retries``, dispatches (``batches``, ``composed_batches``), snapshot
+refreshes (``refreshes``: the snapshots the scheduler took after its
+first; ``refresh_failures``), background compactions and requests served
+from maintained views.  Spans (``repro_torch.trace``, off unless a run
+enables the recorder): ``serve.queue`` from ``submit`` until a batch takes
+the request, ``serve.batch`` around each dispatch and ``serve.refresh``
+around each refresh.
+
 Pricing: both pricing sites (``submit``'s ``retry_after_s`` and the batch
 width) price on the pinned snapshot's device type, the cost model's
 ``"cpu"`` or ``"cuda"`` entry.  On the CPU the plans equal the JAX
@@ -45,6 +55,7 @@ from typing import Callable
 
 import numpy as np
 
+from repro_torch import trace
 from repro_torch.core import costmodel
 from repro_torch.core.planner import plan_batch
 from repro_torch.durability.faults import NULL_FAULTS
@@ -138,6 +149,8 @@ class _Item:
     name: str
     params: tuple[int, ...]
     deadline: float | None   # absolute, in config.clock time
+    qspan: trace.Span | None = None   # its ``serve.queue`` span, if traced
+    batch: int | None = None          # the traced batch that took it
 
 
 class _Pinned:
@@ -217,8 +230,9 @@ class QueryScheduler:
         self.stats = {"submitted": 0, "completed": 0, "rejected": 0,
                       "timed_out": 0, "failed": 0, "retries": 0,
                       "batches": 0, "composed_batches": 0,
-                      "refresh_failures": 0, "bg_compactions": 0,
-                      "bg_compact_conflicts": 0, "maintained_served": 0}
+                      "refreshes": 0, "refresh_failures": 0,
+                      "bg_compactions": 0, "bg_compact_conflicts": 0,
+                      "maintained_served": 0}
 
     # -- admission ---------------------------------------------------------
     def submit(self, name: str, params=None, *,
@@ -226,11 +240,14 @@ class QueryScheduler:
         """Admit one request; full queue resolves immediately as
         ``rejected`` with a cost-model ``retry_after_s`` — load is shed
         at the door, never queued unboundedly."""
+        qspan = trace.begin("serve.queue", query=name)
         if name not in PARAM_QUERIES:
+            trace.finish(qspan, outcome="invalid")
             raise KeyError(f"unknown query {name!r}")
         pq = PARAM_QUERIES[name]
         p = pq.defaults if params is None else tuple(int(x) for x in params)
         if len(p) != pq.n_params:
+            trace.finish(qspan, outcome="invalid")
             raise ValueError(f"{name} takes {pq.n_params} params "
                              f"{pq.params}, got {len(p)}")
         ticket = Ticket()
@@ -245,6 +262,7 @@ class QueryScheduler:
                 ticket._resolve(Response(REJECTED, name, p,
                                          reason="scheduler closed"))
                 self.stats["rejected"] += 1
+                trace.finish(qspan, outcome=REJECTED)
                 return ticket
             if len(self._queue) >= self.config.max_queue:
                 snap = self._pin.snap
@@ -265,8 +283,9 @@ class QueryScheduler:
                                          retry_after_s=retry_after,
                                          reason="queue full"))
                 self.stats["rejected"] += 1
+                trace.finish(qspan, outcome=REJECTED)
                 return ticket
-            self._queue.append(_Item(ticket, name, p, deadline))
+            self._queue.append(_Item(ticket, name, p, deadline, qspan))
         self._wake.set()
         return ticket
 
@@ -277,17 +296,22 @@ class QueryScheduler:
         Failure (injected via the ``snapshot_refresh`` site, or a real
         one — engine mid-recovery, closed) keeps the old pin: serving
         degrades to stale-with-reported-lag instead of erroring."""
-        with self._mu:
-            if not force and self.engine.epoch <= self._pin.snap.epoch:
-                return
-            try:
-                self.faults.hit("snapshot_refresh")
-                snap = self.engine.snapshot()
-            except Exception:
-                self.stats["refresh_failures"] += 1
-                return
-            old, self._pin = self._pin, _Pinned(snap)
-        old.release()
+        with trace.span("serve.refresh") as sp:
+            with self._mu:
+                if not force and self.engine.epoch <= self._pin.snap.epoch:
+                    sp.set(taken=False)
+                    return
+                try:
+                    self.faults.hit("snapshot_refresh")
+                    snap = self.engine.snapshot()
+                except Exception:
+                    self.stats["refresh_failures"] += 1
+                    sp.set(taken=False)
+                    return
+                old, self._pin = self._pin, _Pinned(snap)
+                self.stats["refreshes"] += 1
+            sp.set(taken=True)
+            old.release()
 
     def rebind(self, engine) -> None:
         """Point the scheduler at a recovered engine incarnation.
@@ -316,6 +340,7 @@ class QueryScheduler:
                         TIMED_OUT, it.name, it.params,
                         reason="deadline passed in queue"))
                     self.stats["timed_out"] += 1
+                    trace.finish(it.qspan, outcome=TIMED_OUT)
                 else:
                     survivors.append(it)
             self._queue = survivors
@@ -335,7 +360,12 @@ class QueryScheduler:
             taken = set(map(id, take))
             self._queue = [it for it in self._queue
                            if id(it) not in taken]
-            return take
+        if trace.enabled():
+            batch = trace.next_id()
+            for it in take:
+                it.batch = batch
+                trace.finish(it.qspan, batch=batch)
+        return take
 
     # -- maintained-view fast path -------------------------------------------
     def _serve_maintained(self, live: list[_Item]) -> list[_Item]:
@@ -470,7 +500,9 @@ class QueryScheduler:
             batch = self._next_batch()
             if batch is None:
                 break
-            self._execute(batch)
+            with trace.span("serve.batch", query=batch[0].name,
+                            batch=batch[0].batch, width=len(batch)):
+                self._execute(batch)
             done += 1
         return done
 
@@ -505,6 +537,7 @@ class QueryScheduler:
         for it in residue:
             it.ticket._resolve(Response(REJECTED, it.name, it.params,
                                         reason="scheduler closed"))
+            trace.finish(it.qspan, outcome=REJECTED)
             with self._mu:
                 self.stats["rejected"] += 1
         with self._mu:

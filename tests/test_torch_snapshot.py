@@ -100,7 +100,11 @@ class Lockstep:
 
     def check(self):
         assert self.port.epoch == self.jax.epoch
-        assert self.port.snapshot_info() == self.jax.snapshot_info()
+        # ``snapshot_reprobes`` is the port's own: the JAX engine does not
+        # count its snapshots' lazy probes
+        info = self.port.snapshot_info()
+        assert info.pop("snapshot_reprobes") >= 0
+        assert info == self.jax.snapshot_info()
 
     def snap(self):
         out = (self.port.snapshot(), self.jax.snapshot(),
