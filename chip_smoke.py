@@ -113,7 +113,8 @@ Phases (each raises on failure; nothing is caught):
    sampled with seed+3 through ``pump()``, once on the engine (the
    "batch" flavor: one lazy ``probe_rows`` per dimension on its pinned
    snapshot) and once on an engine with ``fusion="mega"`` (one
-   ``probe_rows`` per joined dimension per dispatch); every answer equals
+   ``probe_rows`` per joined dimension per dispatch), each dispatch one
+   ``batched_tail`` launch on both flavors; every answer equals
    the "composed" flavor's, and Q1.1's and Q2.1's equal ``LogicalModel``
    on the host arrays.  A last pass serves the same requests while
    ``compact_in_background("customer")`` folds a fresh delta: every
@@ -262,6 +263,20 @@ Phases (each raises on failure; nothing is caught):
    and backward, the update), tokens/s, the manual and grouped MoE
    layer's forward and backward ms, the psum's ms, peaks per stage
    against the reckoning, the phase's seconds.
+6j. The batched query tail (seed+10), after 6i: ``generate_ssb(30)`` on
+   the card, whatever ``--sf`` is (the served cells' scale), with a warm
+   probe cache.  Each query's ``batched_tail`` over 3 sampled requests
+   against its plain version and the composed flavor, bit for bit; a tail
+   (operands and kernel) may allocate no more above the resident memory
+   than one int64 vector of the fact rows would take.  ``[tail]``: per
+   query the kernel's ms, the whole tail's, the plain version's, the bytes
+   (every operand once, and only the sectors the kernel must read) and
+   their bound at 3.35 TB/s, the memory above the resident; then a
+   ``QueryScheduler`` round of 3 requests per query: one dispatch and one
+   ``batched_tail`` launch per query id, every answer the composed
+   flavor's.  To try it alone: ``python -c 'import sys,torch;
+   sys.path.insert(0,"src"); import chip_smoke as c;
+   c.query_tails(10, c.nvidia_smi_line(), torch.device("cuda",0))'``.
 7. Skew path (the JAX package's ``benchmarks/skew_sweep.py`` at SSB SF10
    sizes): a 2,000,000-key dimension with part's geometry, probed by
    60,000,000 Zipf(s) keys for s in the paper's grid {0, 0.5, 1.5, 2}.
@@ -338,7 +353,8 @@ SLEEP_CYCLES = 100_000_000
 # ``fused_query``)
 _ZERO = {"probe_rows": 0, "bucket_probe_stream": 0, "probe_filter_rows": 0,
          "probe_filter_rows_delta": 0, "fused_query": 0,
-         "coalesce_window_mask": 0, "pack_bits": 0, "pack_query_bits": 0}
+         "coalesce_window_mask": 0, "batched_tail": 0, "pack_bits": 0,
+         "pack_query_bits": 0}
 EXPECTED_LAUNCHES = dict(_ZERO, probe_rows=8, probe_filter_rows=32,
                          pack_bits=32, fused_query=13, pack_query_bits=13)
 EXPECTED_STREAM = dict(_ZERO, bucket_probe_stream=8, probe_filter_rows=32,
@@ -1498,6 +1514,203 @@ def lm_mesh(seed: int, smi: str, dev) -> dict:
         + ", ".join(f"{k} {v} ({v / 2**30:.3f})" for k, v in peaks.items())
         + f"; {out['seconds']:.1f} s")
     return out
+
+
+# phase 6j: the batched query tail at the served cells' scale
+# (bench/configs/ssb_sf30.json), dispatches of 3 requests (the read cell
+# serves 2.37 a dispatch), a served round of 3 requests per query
+TAIL_SF = 30
+TAIL_WIDTH = 3
+TAIL_SERVED = 3
+TAIL_REPS = 5
+
+
+def tail_bytes(dim_ops, fact_word, measure, n_requests: int):
+    """Bytes one ``batched_tail`` launch moves: ``(whole, needed)``.
+
+    ``whole`` reads every operand once: each joined dimension's found
+    byte and dim_row, the fact word and the measure's columns over all
+    fact rows, the planes once, the outputs written once.  ``needed``
+    counts the fact word and the measure only in the 32-byte sectors (8
+    rows) where some row still passes for some request when the kernel
+    would read them: the kernel reads the word after the dimensions and
+    the measure after the word."""
+    import torch
+
+    op, ma, mb = measure
+    n = ma.shape[0]
+    keep = torch.full((n,), -1, dtype=torch.int32, device=ma.device)
+    all_bits = (1 << n_requests) - 1 if n_requests < 32 else -1
+    planes = 0
+    for found, row, pred, group in dim_ops:
+        keep = torch.where(found, keep, 0)
+        n_dim = (pred if pred is not None else group).shape[0]
+        if pred is not None:
+            keep &= pred[row.clamp(0, n_dim - 1).long()]
+        planes += 4 * n_dim * ((pred is not None) + (group is not None))
+    if n_requests < 32:
+        keep &= all_bits
+
+    def sectors(mask):
+        pad = -n % 8
+        m = torch.nn.functional.pad(mask, (0, pad)).view(-1, 8).any(dim=1)
+        return int(m.sum()) * 32
+
+    fixed = 5 * n * len(dim_ops) + planes + 4 * n_requests
+    cols = 1 + (mb is not None)
+    whole = fixed + 4 * n * cols + (0 if fact_word is None else 4 * n)
+    needed = fixed
+    if fact_word is not None:
+        needed += sectors(keep != 0)
+        keep &= fact_word
+    needed += cols * sectors(keep != 0)
+    return whole, needed
+
+
+def query_tails(seed: int, smi: str, dev) -> tuple[dict, int]:
+    """Phase 6j: the batched query tail at SF30.
+
+    On ``generate_ssb(TAIL_SF)`` with a warm probe cache, every query's
+    ``batched_tail`` over ``TAIL_WIDTH`` sampled requests against its
+    plain version and against the composed flavor (``_filter_aggregate``
+    per request), bit for bit; each query's kernel ms (CUDA events behind
+    a sleeping kernel), the whole tail's (``_batched_tail``: operands and
+    kernel), the plain version's, the bytes and the bound they set, and
+    the device memory a tail allocates above what was resident (under the
+    8 bytes a row that one int64 vector of the fact rows would take).
+    Then a ``QueryScheduler`` serves ``TAIL_SERVED`` requests of each
+    query: one dispatch per query id, each exactly one ``batched_tail``
+    launch, every answer the composed flavor's.  Returns the kernel
+    table's row (means per launch over the queries) and the served
+    round's launches."""
+    import importlib
+
+    import numpy as np
+    import torch
+
+    from repro_torch.engine import SSB_QUERIES, SSBEngine, generate_ssb
+    from repro_torch.serving import (PARAM_QUERIES, BatchRunner,
+                                     QueryScheduler, ServeConfig)
+    from repro_torch.serving import batch as pbatch
+    bt = importlib.import_module("repro_torch.kernels.batched_tail")
+
+    def ev_ms(fn, reps):
+        fn()
+        torch.cuda.synchronize()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(SLEEP_CYCLES)
+        start.record()
+        for _ in range(reps):
+            fn()
+        end.record()
+        end.synchronize()
+        return start.elapsed_time(end) / reps
+
+    t0 = time.perf_counter()
+    tables = generate_ssb(TAIL_SF, seed=seed, device=dev)
+    eng = SSBEngine(tables, device=dev)
+    eng.warm_cache()
+    torch.cuda.synchronize()
+    n = eng.tables["lineorder"].n_physical
+    log(f"[tail] SF{TAIL_SF:g}: {n} fact rows, engine and probe cache in "
+        f"{time.perf_counter() - t0:.1f} s")
+    names = sorted(SSB_QUERIES)
+    rng = np.random.default_rng(seed)
+    fact_cols = dict(eng.tables["lineorder"].columns)
+    per = {}
+    for name in names:
+        spec = SSB_QUERIES[name]
+        pq = PARAM_QUERIES[name]
+        dim_cols = {d: dict(eng.tables[d].columns)
+                    for d in spec.joined_dims()}
+        probes = {d: eng.probe_dim(d) for d in spec.joined_dims()}
+        ps = [pq.sample(rng) for _ in range(TAIL_WIDTH)]
+        params = torch.as_tensor(np.asarray(ps, np.int32), device=dev)
+        bound_q = pq.bind([params[:, j:j + 1] for j in range(len(ps[0]))])
+        ops = bt.tail_operands(bound_q, fact_cols, dim_cols, probes, len(ps))
+        kw = {"n_requests": len(ps), "num_segments": ops[3]}
+        got = bt.batched_tail(*ops[:3], **kw)
+        want = bt.batched_tail_plain(*ops[:3], **kw)
+        composed = BatchRunner().run_batch(eng, name, ps, flavor="composed")
+        torch.cuda.synchronize()
+        if not all(torch.equal(g, w) for g, w in zip(got, want)):
+            raise AssertionError(f"batched_tail on {name} differs from its "
+                                 "plain version")
+        for i, (t, g) in enumerate(composed):
+            if int(got[0][i]) != t or not np.array_equal(
+                    got[1][i].cpu().numpy(), g):
+                raise AssertionError(f"batched_tail on {name}{ps[i]} differs "
+                                     "from the composed flavor")
+        whole, needed = tail_bytes(*ops[:3], len(ps))
+        torch.cuda.synchronize()
+        resident = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        pbatch._batched_tail(pq, fact_cols, dim_cols, probes, params)
+        torch.cuda.synchronize()
+        above = torch.cuda.max_memory_allocated() - resident
+        if above >= 8 * n:
+            raise AssertionError(f"the tail of {name} allocated {above} "
+                                 f"bytes above the resident, past one int64 "
+                                 f"vector of the {n} fact rows")
+        r = per[name] = {
+            "ms": ev_ms(lambda: bt.batched_tail(*ops[:3], **kw),
+                        TAIL_REPS),
+            "tail_ms": ev_ms(lambda: pbatch._batched_tail(
+                pq, fact_cols, dim_cols, probes, params), TAIL_REPS),
+            "plain_ms": ev_ms(lambda: bt.batched_tail_plain(*ops[:3], **kw),
+                              1),
+            "bytes": whole, "needed": needed, "above": above,
+            "bound_ms": needed / HBM_BYTES_PER_S * 1e3,
+            "whole_ms": whole / HBM_BYTES_PER_S * 1e3}
+        log(f"[tail] {smi}: {name} x{len(ps)}: kernel {r['ms']:.4f} ms, "
+            f"operands and kernel {r['tail_ms']:.4f} ms, plain "
+            f"{r['plain_ms']:.2f} ms; bytes whole {whole} "
+            f"({r['whole_ms']:.4f} ms at {HBM_BYTES_PER_S / 1e12:g} TB/s), "
+            f"needed {needed} ({r['bound_ms']:.4f} ms, "
+            f"{r['bound_ms'] / r['ms'] * 100:.1f}% of it); allocated "
+            f"{above} bytes above the resident; bit-identical")
+        del ops, got, want
+    mean = {k: sum(r[k] for r in per.values()) / len(per)
+            for k in ("ms", "tail_ms", "plain_ms", "bytes", "needed",
+                      "bound_ms", "whole_ms")}
+    log(f"[tail] {smi}: mean over the {len(per)} queries x{TAIL_WIDTH}: "
+        f"kernel {mean['ms']:.4f} ms, operands and kernel "
+        f"{mean['tail_ms']:.4f} ms, plain {mean['plain_ms']:.2f} ms, bound "
+        f"{mean['bound_ms']:.4f} ms (needed bytes), {mean['whole_ms']:.4f} "
+        f"ms (whole bytes)")
+    # a served round: one dispatch, one launch per query id
+    reqs = [(q, PARAM_QUERIES[q].sample(rng)) for q in names
+            for _ in range(TAIL_SERVED)]
+    want = {i: BatchRunner().run_batch(eng, q, [p], flavor="composed")[0]
+            for i, (q, p) in enumerate(reqs)}
+    sched = QueryScheduler(eng, ServeConfig(max_queue=len(reqs)))
+    tickets = [sched.submit(q, p) for q, p in reqs]
+    before = bt.batched_tail.launches
+    sched.pump()
+    torch.cuda.synchronize()
+    launches = bt.batched_tail.launches - before
+    info = sched.info()
+    sched.close()
+    if info["batches"] != len(names) or launches != info["batches"] or \
+            info["composed_batches"] or info["completed"] != len(reqs):
+        raise AssertionError(f"served round: {launches} batched_tail "
+                             f"launches, {json.dumps(info)}")
+    for i, tk in enumerate(tickets):
+        r = tk.response
+        if not r.ok or r.total != want[i][0] or \
+                not np.array_equal(r.groups, want[i][1]):
+            raise AssertionError(f"served round: {reqs[i]} differs from the "
+                                 "composed flavor")
+    log(f"[tail] served round: {len(reqs)} requests in {info['batches']} "
+        f"dispatches, {launches} batched_tail launches, every answer the "
+        "composed flavor's, bit for bit")
+    row = {"shape": f"SF{TAIL_SF:g}, {n} fact rows, {len(names)} queries x "
+                    f"{TAIL_WIDTH} requests, mean per launch",
+           "bytes": round(mean["needed"]), "ms": mean["ms"],
+           "plain_ms": mean["plain_ms"], "bound_ms": mean["bound_ms"],
+           "bound_by": "bytes"}
+    return row, launches
 
 
 def log(*parts):
@@ -2869,9 +3082,12 @@ def main() -> int:
     mv_mega = SSBEngine(mv.tables, indexes=mv.indexes,
                         policy=ExecutionPolicy(fusion="mega"))
     joined = sum(len(SSB_QUERIES[q].joined_dims()) for q in names)
+    # one batched_tail launch per dispatch on both flavors
     for label, eng, want in (
-            ("batch", mv, dict(_ZERO, probe_rows=len(DIM_PK))),
-            ("mega", mv_mega, dict(_ZERO, probe_rows=joined))):
+            ("batch", mv, dict(_ZERO, probe_rows=len(DIM_PK),
+                               batched_tail=len(names))),
+            ("mega", mv_mega, dict(_ZERO, probe_rows=joined,
+                                   batched_tail=len(names)))):
         sched = QueryScheduler(eng, ServeConfig(max_queue=len(requests)))
         tickets = [sched.submit(q, p) for q, p in requests]
         t = time.perf_counter()
@@ -2963,7 +3179,7 @@ def main() -> int:
         joined_at.setdefault(tk.response.epoch, set()).update(
             SSB_QUERIES[q].joined_dims())
     check_counts(got_bg, dict(_ZERO, probe_rows=sum(
-        len(d) for d in joined_at.values())),
+        len(d) for d in joined_at.values()), batched_tail=info["batches"]),
         "serving beside compact_in_background")
     lags = {}
     for tk, (q, p) in zip(tickets, requests):
@@ -4033,6 +4249,15 @@ def main() -> int:
     log(f"[6i] the mesh path of LM training: "
         f"{time.perf_counter() - t_6i:.1f} s")
 
+    # -- 6j. the batched query tail at SF30 ----------------------------------
+    gc.collect()
+    torch.cuda.empty_cache()
+    t_6j = time.perf_counter()
+    (rows["batched_tail"], tail_launches), got = counted(
+        lambda: query_tails(args.seed + 10, smi, dev))
+    log(f"[launches] phase 6j: {json.dumps(got)}")
+    log(f"[6j] the batched query tail: {time.perf_counter() - t_6j:.1f} s")
+
     # -- 8. numbers ---------------------------------------------------------------
     log(f"[memory] resident before the main path (tables, indexes): "
         f"{resident} bytes; peak allocated over it: {peak} bytes "
@@ -4146,7 +4371,8 @@ def main() -> int:
                          probe_filter_rows_delta=launches_live[
                              "probe_filter_rows_delta"],
                          coalesce_window_mask=skew_launches[
-                             "coalesce_window_mask"])
+                             "coalesce_window_mask"],
+                         batched_tail=tail_launches)
     log(f"[script] {time.perf_counter() - t_script:.1f} s after the device "
         "query")
 

@@ -3,6 +3,8 @@
 Kernel sources live in ``csrc/`` and are compiled with ``nvcc`` at the
 first launch (``_build``); importing this package needs no CUDA toolkit.
 """
+from repro_torch.kernels.batched_tail import (batched_tail,
+                                              batched_tail_plain)
 from repro_torch.kernels.bucket_probe import (
     bucket_probe_stream, bucket_probe_stream_plain,
     pack_bits, pack_bits_plain, probe_filter_rows,
@@ -23,7 +25,8 @@ from repro_torch.kernels.ref import (NULL_WORD, bucket_probe_ref,
                                      probe_filter_rows_ref, probe_rows_ref,
                                      segment_sum, unpack_words)
 
-__all__ = ["bucket_probe_stream", "bucket_probe_stream_plain",
+__all__ = ["batched_tail", "batched_tail_plain",
+           "bucket_probe_stream", "bucket_probe_stream_plain",
            "pack_bits", "pack_bits_plain",
            "probe_filter_rows", "probe_filter_rows_delta",
            "probe_filter_rows_delta_plain", "probe_filter_rows_plain",

@@ -56,6 +56,12 @@ SIGNATURES = {
         # groups, num_segments, stream
         "fused_query_launch": (_P, _P, _I32, _P, _P, _I64, _P, _I32, _P),
     },
+    "batched_tail": {
+        # dim pointer table (host), dim row counts (host), n_dims, fword,
+        # ma, mb, mop, n, nb, size, totals, groups, stream
+        "batched_tail_launch": (_P, _P, _I32, _P, _P, _P, _I32, _I64, _I32,
+                                _I32, _P, _P, _P),
+    },
     "coalesce_window": {
         # keys, out, m, window, stream
         "coalesce_window_mask_launch": (_P, _P, _I64, _I32, _P),

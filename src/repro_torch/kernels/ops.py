@@ -31,6 +31,8 @@ from repro_torch.core.hash_table import (EMPTY_KEY, HASH_FIBONACCI,
                                          JSPIMTable, build_table, hash_bucket)
 from repro_torch.core.lookup import NULL_WORD, ProbeResult, unpack_words
 from repro_torch.core.skew import zipf_sample
+from repro_torch.kernels.batched_tail import (batched_tail,
+                                              batched_tail_plain)
 from repro_torch.kernels.bucket_probe import (
     bucket_probe_stream, bucket_probe_stream_plain, probe_filter_rows,
     probe_filter_rows_delta, probe_filter_rows_delta_plain,
@@ -141,7 +143,8 @@ class KernelOp:
     ``plain_fn(*args, **kwargs)`` on every case ``make_cases(device)``
     yields (``[(name, args, kwargs)]``, deterministic).  ``fn.launches``
     counts kernel launches.  ``source`` is the CUDA file, ``replaces`` the
-    Pallas kernel (file:line of its ``pallas_call``).
+    Pallas kernel (file:line of its ``pallas_call``), or ``None`` for a
+    kernel that replaces none.
     """
 
     name: str
@@ -150,7 +153,7 @@ class KernelOp:
     backends: tuple[str, ...]
     make_cases: Callable[[str], list]
     source: str
-    replaces: str
+    replaces: str | None
 
 
 KERNEL_REGISTRY: dict[str, KernelOp] = {}
@@ -255,6 +258,62 @@ def _fused_query_cases(device="cpu"):
     return cases
 
 
+def _tail_case(device, rng, n, dims, n_requests, op, fact_filter,
+               offset=0):
+    """Random ``batched_tail`` operands: ``dims`` lists ``(n_dim, pred,
+    card)`` (``card`` 0: not grouped), a tenth of the rows miss (``dim_row``
+    -1) and a few found rows point past the table (clamped); measures near
+    2^31 overflow.  ``offset`` > 0 takes every fact-row vector as a slice
+    starting that many elements in, so it is not 16-byte aligned."""
+    def vec(a):
+        a = np.concatenate([np.zeros(offset, a.dtype), a])
+        return torch.as_tensor(a, device=device)[offset:]
+
+    size = int(np.prod([c for _, _, c in dims if c]))
+    stride = size
+    dim_ops = []
+    for n_dim, pred, card in dims:
+        found = rng.random(n) > 0.1
+        row = rng.integers(0, n_dim, n).astype(np.int32)
+        row[rng.random(n) < 0.02] = n_dim + 5
+        row = np.where(found, row, -1).astype(np.int32)
+        words = group = None
+        if pred:
+            words = _t(rng.integers(-2 ** 31, 2 ** 31, n_dim), device)
+        if card:
+            stride //= card
+            group = _t(rng.integers(0, card, n_dim) * stride, device)
+        dim_ops.append((vec(found), vec(row), words, group))
+    fword = None
+    if fact_filter:
+        fword = vec(rng.integers(-2 ** 31, 2 ** 31, n).astype(np.int32))
+    ma = vec(rng.integers(2 ** 30, 2 ** 31, n).astype(np.int32))
+    mb = None if op == 0 else \
+        vec(rng.integers(-2 ** 31, 2 ** 31, n).astype(np.int32))
+    return ((tuple(dim_ops), fword, (op, ma, mb)),
+            {"n_requests": n_requests, "num_segments": size})
+
+
+def _batched_tail_cases(device="cpu"):
+    """A Q1-like tail (one filtered dimension and a fact filter, one
+    segment), Q2/Q4.1-like grouped tails that fit a block histogram, a
+    four-dimension tail over 32 requests whose groups do not, and the
+    last with unaligned fact-row vectors; row counts not multiples of 4."""
+    rng = np.random.default_rng(13)
+    specs = [
+        ("one_dim_fact_filter", 1001, [(7, True, 0)], 3, 1, True, 0),
+        ("three_dims_grouped", 2047, [(5, False, 7), (60, True, 0),
+                                      (300, True, 25)], 8, 2, False, 0),
+        ("four_dims_32_requests", 3001, [(5, True, 7), (40, True, 25),
+                                         (90, True, 0), (300, True, 500)],
+         32, 0, False, 0),
+        ("unaligned_slices", 1003, [(9, True, 3), (70, True, 11)], 5, 3,
+         True, 1),
+    ]
+    return [(name,) + _tail_case(device, rng, n, dims, b, op, ff, off)
+            for name, n, dims, b, op, ff, off in specs]
+
+
 def _coalesce_cases(device="cpu"):
     """The reference's duplicate-heavy stream, then a Zipf(1.5) stream
     long enough to cross several 256-key blocks; window 8."""
@@ -286,6 +345,10 @@ register_kernel(KernelOp(
     "fused_query", fused_query, fused_query_plain, ("cuda",),
     _fused_query_cases, "src/repro_torch/kernels/csrc/fused_query.cu",
     "src/repro/kernels/fused_query.py:140"))
+register_kernel(KernelOp(
+    "batched_tail", batched_tail, batched_tail_plain, ("cuda",),
+    _batched_tail_cases, "src/repro_torch/kernels/csrc/batched_tail.cu",
+    None))
 register_kernel(KernelOp(
     "coalesce_window_mask", coalesce_window_mask, coalesce_window_mask_plain,
     ("cuda",), _coalesce_cases,

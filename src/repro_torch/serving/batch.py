@@ -2,17 +2,18 @@
 
 PyTorch port of ``repro.serving.batch``.  The JAX package vmaps the shared
 ``_filter_aggregate`` tail over a ``(B, P)`` parameter array inside one
-compiled program.  Here the tail is evaluated for the B requests as
-batched tensors instead: the probes and everything else that does not
-depend on the parameters (the join mask, the measure, the composite group
-key) are computed once per dispatch; each dimension predicate becomes a
-``(B, n_dim)`` mask (the parameters are ``(B, 1)`` columns, so the
-``ParamQuery`` lambdas broadcast), is gathered to ``(B, rows)`` through the
-probed rows, and the B segment sums run as one segment sum over ``B *
-size`` segments.  Integer sums wrap the same way in any order, so every
-request's answer is bit-identical to running its query alone.  (The JAX
-package pads a batch to a power of two to bound its traces; eager torch
-compiles nothing, so a batch here is evaluated at its own width.)
+compiled program and XLA fuses it.  Here the tail is the hand-written
+``batched_tail`` kernel (``kernels/batched_tail.py``; its plain version on
+CPU tensors), one launch per 32 requests: the probes come once per
+dispatch, each dimension predicate is evaluated by its ``ParamQuery``
+lambda on the dimension table with ``(B, 1)`` parameter columns into a
+word per dimension row (bit ``i`` request ``i``'s predicate), and the
+kernel streams the fact rows once, keeping no mask, measure or group key
+of their length in device memory.  Integer sums wrap the same way in any
+order, so every request's answer is bit-identical to running its query
+alone.  (The JAX package pads a batch to a power of two to bound its
+traces; eager torch compiles nothing, so a batch here is evaluated at its
+own width.)
 
 Flavors:
 
@@ -28,7 +29,7 @@ Flavors:
   never re-entered by its own fallback.
 
 Spans (``repro_torch.trace``, off unless a run enables the recorder):
-``batch.probes`` around the probes, ``batch.tail`` around each group's
+``batch.probes`` around the probes, ``batch.tail`` around the dispatch's
 tail (each request's ``_filter_aggregate`` on the composed flavor) and
 ``batch.readback`` around the copies of the answers to the host.
 
@@ -45,57 +46,34 @@ from repro_torch import trace
 from repro_torch.core.policy import ExecutionPolicy
 from repro_torch.durability.faults import NULL_FAULTS
 from repro_torch.engine.join import effective_index, found_rows, lookup
-from repro_torch.engine.queries import (FACT_FK, SSB_QUERIES, _clip_rows,
+from repro_torch.engine.queries import (FACT_FK, SSB_QUERIES,
                                         _filter_aggregate)
-from repro_torch.engine.table import Table
-from repro_torch.kernels.ref import segment_sum
+from repro_torch.kernels.batched_tail import (MAX_REQUESTS, batched_tail,
+                                             tail_operands)
 from repro_torch.serving.params import PARAM_QUERIES, ParamQuery
-
-# Working-memory bound of the batched tail: requests x fact rows evaluated
-# together.  A group of g requests over n rows holds about 11 g n bytes at
-# once (a bool mask, int32 contributions and segment ids, the gathered
-# dimension masks one at a time), so 2^28 cells is about 3 GB; at SF10
-# (60M to 77M fact rows) that is 3 or 4 requests a group, and a wider
-# batch runs group after group.
-MAX_BATCH_CELLS = 1 << 28
 
 
 def _batched_tail(pq: ParamQuery, fact_cols, dim_cols, probes,
                   params: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     """``_filter_aggregate`` of ``pq`` for every row of ``params`` (B, P):
     ``(totals (B,), groups (B, size))``, int32, each row bit-identical to
-    the bound query run alone."""
-    spec = SSB_QUERIES[pq.name]
-    fact = Table(fact_cols)
-    n, dev = fact.n_rows, fact.device
-    b = params.shape[0]
-    p = [params[:, j:j + 1] for j in range(params.shape[1])]
-    base = torch.ones(n, dtype=torch.bool, device=dev)
-    for dim in spec.joined_dims():
-        base = base & probes[dim][0]
-    mask = base.expand(b, n)
-    for dim, f in pq.dim_filters.items():
-        dmask = f(Table(dim_cols[dim]), p)
-        dmask = dmask.expand(b, dmask.shape[-1])
-        mask = mask & dmask[:, _clip_rows(probes[dim][1], dmask.shape[-1])]
-    if pq.fact_filter is not None:
-        mask = mask & pq.fact_filter(fact, p)
-    contrib = torch.where(mask, spec.measure(fact).to(torch.int32), 0)
-    totals = contrib.sum(dim=1).to(torch.int32)
-    if not spec.group_by:
-        return totals, totals[:, None]
-    gk = torch.zeros(n, dtype=torch.int32, device=dev)
-    size = 1
-    for dim, col, card in spec.group_by:
-        c = dim_cols[dim][col]
-        gk = gk * card + torch.remainder(
-            c[_clip_rows(probes[dim][1], c.shape[0])], card)
-        size *= card
-    # request i's segments are [i size, (i + 1) size); masked-out rows
-    # contribute 0, which ``segment_sum`` drops
-    ids = gk + torch.arange(b, dtype=torch.int32, device=dev)[:, None] * size
-    groups = segment_sum(contrib.reshape(-1), ids.reshape(-1), b * size)
-    return totals, groups.view(b, size)
+    the bound query run alone.  One ``batched_tail`` (the kernel on CUDA
+    tensors, its plain version on CPU tensors) per ``MAX_REQUESTS`` rows
+    of ``params``, over operands built from ``pq``'s callables bound to
+    their columns."""
+    totals, groups = [], []
+    for i in range(0, params.shape[0], MAX_REQUESTS):
+        part = params[i:i + MAX_REQUESTS]
+        spec = pq.bind([part[:, j:j + 1] for j in range(part.shape[1])])
+        dim_ops, fact_word, measure, size = tail_operands(
+            spec, fact_cols, dim_cols, probes, part.shape[0])
+        t, g = batched_tail(dim_ops, fact_word, measure,
+                            n_requests=part.shape[0], num_segments=size)
+        totals.append(t)
+        groups.append(g)
+    if len(totals) == 1:
+        return totals[0], groups[0]
+    return torch.cat(totals), torch.cat(groups)
 
 
 class BatchRunner:
@@ -155,10 +133,7 @@ class BatchRunner:
         sees ``kernel_mega:{name}`` / ``kernel_batch:{name}`` once per
         dispatch and ``kernel_composed:{name}`` once per request, before
         anything of it launches: an injected crash fails the whole batch,
-        as a device fault would.  A batched dispatch evaluates at most
-        ``MAX_BATCH_CELLS // rows`` requests at a time (at least one), so
-        its working memory stays near ``11 * MAX_BATCH_CELLS`` bytes
-        whatever the batch width.
+        as a device fault would.
         """
         if not params_list:
             return []
@@ -192,16 +167,10 @@ class BatchRunner:
         b = len(params_list)
         params = torch.as_tensor(np.asarray(params_list, np.int32),
                                  device=runner.tables["lineorder"].device)
-        n = runner.tables["lineorder"].n_physical
-        group = max(1, MAX_BATCH_CELLS // max(1, n))
-        totals, groups = [], []
-        for i in range(0, b, group):
-            with trace.span("batch.tail", width=min(group, b - i)):
-                t, g = _batched_tail(pq, fact_cols, dim_cols, probes,
-                                     params[i:i + group])
-            totals.append(t)
-            groups.append(g)
+        with trace.span("batch.tail", width=b):
+            totals, groups = _batched_tail(pq, fact_cols, dim_cols, probes,
+                                           params)
         with trace.span("batch.readback", width=b):
-            totals = torch.cat(totals).cpu().numpy()
-            groups = torch.cat(groups).cpu().numpy()
+            totals = totals.cpu().numpy()
+            groups = groups.cpu().numpy()
         return [(int(totals[i]), groups[i]) for i in range(b)]

@@ -41,6 +41,8 @@ def pytest_configure(config):
         "markers",
         "slow: heavy Zipf/sharded/property suites (CI runs them in a "
         "separate parallel shard)")
+    config.addinivalue_line(
+        "markers", "card: needs a CUDA card (skips without one)")
 
 
 @pytest.fixture(scope="session")

@@ -56,14 +56,19 @@ def _eq(got, want, msg=""):
 
 def test_registry_lists_the_on_path_kernels():
     assert sorted(tops.KERNEL_REGISTRY) == [
-        "bucket_probe_stream", "coalesce_window_mask", "fused_query",
-        "probe_filter_rows", "probe_filter_rows_delta", "probe_rows"]
+        "batched_tail", "bucket_probe_stream", "coalesce_window_mask",
+        "fused_query", "probe_filter_rows", "probe_filter_rows_delta",
+        "probe_rows"]
     assert all(len(tops.KERNEL_REGISTRY[n].make_cases("cpu")) > i
                for n, i in REGISTRY_CASES)
     for name, op in tops.KERNEL_REGISTRY.items():
         assert op.backends == ("cuda",)
         assert op.source.startswith("src/repro_torch/kernels/csrc/")
-        assert name in jops.KERNEL_REGISTRY
+        # every kernel that replaces a Pallas kernel is the JAX registry's;
+        # batched_tail replaces none (XLA fuses the reference's tail)
+        assert (name in jops.KERNEL_REGISTRY) == (op.replaces is not None)
+        assert op.replaces is None or op.replaces.startswith(
+            "src/repro/kernels/")
 
 
 @pytest.mark.parametrize("name,i", REGISTRY_CASES)

@@ -51,8 +51,10 @@ from repro_torch.serving import (PARAM_QUERIES, BatchRunner, LogicalModel,
 from repro_torch.serving import batch as pbatch
 from repro_torch.serving import scheduler as pscheduler
 
-# the package exports the function ``fused_query`` under the module's name
+# the package exports the functions ``fused_query`` and ``batched_tail``
+# under their modules' names
 fused_query = importlib.import_module("repro_torch.kernels.fused_query")
+batched_tail = importlib.import_module("repro_torch.kernels.batched_tail")
 SF = 0.002
 NAMES = sorted(SSB_QUERIES)
 FLAVORS = ("batch", "mega", "composed")
@@ -202,14 +204,13 @@ def test_flavors_equal_the_jax_batch_runner_and_oracle(tables):
 
 def test_batch_split_into_groups_gives_the_same_answers(engine,
                                                         monkeypatch):
-    """A batch wider than the working-memory bound runs group by group
-    with the same answers."""
+    """A batch wider than one pass of the tail runs pass by pass with the
+    same answers."""
     rng = np.random.default_rng(9)
-    n = engine.tables["lineorder"].n_physical
     for name in ("Q1.2", "Q3.3", "Q4.1"):
         ps = [PARAM_QUERIES[name].sample(rng) for _ in range(7)]
         whole = BatchRunner().run_batch(engine, name, ps, flavor="batch")
-        monkeypatch.setattr(pbatch, "MAX_BATCH_CELLS", 3 * n)
+        monkeypatch.setattr(pbatch, "MAX_REQUESTS", 3)
         split = BatchRunner().run_batch(engine, name, ps, flavor="batch")
         monkeypatch.undo()
         for (t1, g1), (t2, g2) in zip(whole, split):
@@ -808,7 +809,8 @@ def test_maintained_serving_can_be_disabled(tables, model):
     bucket_probe.pack_bits, bucket_probe.probe_rows,
     bucket_probe.bucket_probe_stream, bucket_probe.probe_filter_rows,
     bucket_probe.probe_filter_rows_delta, fused_query.pack_query_bits,
-    fused_query.fused_query, coalesce_window.coalesce_window_mask],
+    fused_query.fused_query, coalesce_window.coalesce_window_mask,
+    batched_tail.batched_tail],
     ids=lambda f: f.__name__)
 def test_wrappers_take_the_operand_device_stream(fn):
     """Serving threads launch kernels too: each wrapper takes the stream of
