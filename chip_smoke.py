@@ -277,6 +277,19 @@ Phases (each raises on failure; nothing is caught):
    flavor's.  To try it alone: ``python -c 'import sys,torch;
    sys.path.insert(0,"src"); import chip_smoke as c;
    c.query_tails(10, c.nvidia_smi_line(), torch.device("cuda",0))'``.
+   Then ``skewed_tails`` (alone: the same with ``c.skewed_tails``): the
+   benchmark's two SF30 deployments drawn by its generator from one seed
+   (``bench/configs/ssb_sf30.json``, uniform keys, and
+   ``ssb_sf30_zipf1.json``: bounded Zipf(1.0) custkey, partkey, suppkey),
+   each query's ``batched_tail`` at 1, 3 and 8 requests with the same
+   constants on both, bit-identical to its plain version;
+   ``[tail-zipf]``: kernel ms uniform / Zipf and their ratio, and the
+   queries past 1.5x.  Then gathered, deduped and hot/cold forced in turn
+   (``ExecutionPolicy(schedule=)``) on the skewed tables: ``[plan]`` per
+   dimension the re-probe a snapshot makes (``lookup`` under the plan),
+   its device ms, its words equal to gathered's, the plan's estimates,
+   and whether gathered is within 10% of the fastest (logged, not
+   raised: the CUDA planner's fixed pick is recorded here, not enforced).
 7. Skew path (the JAX package's ``benchmarks/skew_sweep.py`` at SSB SF10
    sizes): a 2,000,000-key dimension with part's geometry, probed by
    60,000,000 Zipf(s) keys for s in the paper's grid {0, 0.5, 1.5, 2}.
@@ -1567,6 +1580,24 @@ def tail_bytes(dim_ops, fact_word, measure, n_requests: int):
     return whole, needed
 
 
+def device_ms(fn, reps: int) -> float:
+    """Device ms per call of ``fn`` by CUDA events, the calls queued behind
+    a sleeping kernel (a call that synchronises adds its host time)."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(SLEEP_CYCLES)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / reps
+
+
 def query_tails(seed: int, smi: str, dev) -> tuple[dict, int]:
     """Phase 6j: the batched query tail at SF30.
 
@@ -1593,19 +1624,6 @@ def query_tails(seed: int, smi: str, dev) -> tuple[dict, int]:
                                      QueryScheduler, ServeConfig)
     from repro_torch.serving import batch as pbatch
     bt = importlib.import_module("repro_torch.kernels.batched_tail")
-
-    def ev_ms(fn, reps):
-        fn()
-        torch.cuda.synchronize()
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        torch.cuda._sleep(SLEEP_CYCLES)
-        start.record()
-        for _ in range(reps):
-            fn()
-        end.record()
-        end.synchronize()
-        return start.elapsed_time(end) / reps
 
     t0 = time.perf_counter()
     tables = generate_ssb(TAIL_SF, seed=seed, device=dev)
@@ -1654,12 +1672,12 @@ def query_tails(seed: int, smi: str, dev) -> tuple[dict, int]:
                                  f"bytes above the resident, past one int64 "
                                  f"vector of the {n} fact rows")
         r = per[name] = {
-            "ms": ev_ms(lambda: bt.batched_tail(*ops[:3], **kw),
-                        TAIL_REPS),
-            "tail_ms": ev_ms(lambda: pbatch._batched_tail(
+            "ms": device_ms(lambda: bt.batched_tail(*ops[:3], **kw),
+                            TAIL_REPS),
+            "tail_ms": device_ms(lambda: pbatch._batched_tail(
                 pq, fact_cols, dim_cols, probes, params), TAIL_REPS),
-            "plain_ms": ev_ms(lambda: bt.batched_tail_plain(*ops[:3], **kw),
-                              1),
+            "plain_ms": device_ms(
+                lambda: bt.batched_tail_plain(*ops[:3], **kw), 1),
             "bytes": whole, "needed": needed, "above": above,
             "bound_ms": needed / HBM_BYTES_PER_S * 1e3,
             "whole_ms": whole / HBM_BYTES_PER_S * 1e3}
@@ -1711,6 +1729,178 @@ def query_tails(seed: int, smi: str, dev) -> tuple[dict, int]:
            "plain_ms": mean["plain_ms"], "bound_ms": mean["bound_ms"],
            "bound_by": "bytes"}
     return row, launches
+
+
+# phase 6j on skewed keys: the benchmark's two SF30 deployments, drawn by
+# its generator (bench/datagen.py) from one seed: bench/configs/ssb_sf30.json
+# (uniform keys) and ssb_sf30_zipf1.json (bounded Zipf(1.0) custkey, partkey
+# and suppkey, Rabl et al., ICPE 2013), equal but for those keys; a query
+# this much slower on skewed keys is named; then each probe schedule the
+# planner prices, forced in turn, on one re-probe of every dimension
+TAIL_DEPLOYMENTS = (("uniform", "ssb_sf30"), ("zipf", "ssb_sf30_zipf1"))
+TAIL_WIDTHS = (1, 3, 8)
+TAIL_SLOWER = 1.5
+FORCED_SCHEDULES = ("gathered", "deduped", "hot_cold")
+REPROBE_REPS = 3
+
+
+def tail_kernel_ms(eng, params: dict, dev) -> dict:
+    """``{(query, width): kernel ms}`` of ``batched_tail`` over the engine's
+    cached probes, each launch's output bit-identical to the plain
+    version's; ``params`` gives each query's requests at each width."""
+    import importlib
+
+    import numpy as np
+    import torch
+
+    from repro_torch.engine import SSB_QUERIES
+    from repro_torch.serving import PARAM_QUERIES
+    bt = importlib.import_module("repro_torch.kernels.batched_tail")
+
+    fact_cols = dict(eng.tables["lineorder"].columns)
+    out = {}
+    for (name, w), ps in params.items():
+        dims = SSB_QUERIES[name].joined_dims()
+        dim_cols = {d: dict(eng.tables[d].columns) for d in dims}
+        probes = {d: eng.probe_dim(d) for d in dims}
+        p = torch.as_tensor(np.asarray(ps, np.int32), device=dev)
+        bound_q = PARAM_QUERIES[name].bind(
+            [p[:, j:j + 1] for j in range(p.shape[1])])
+        ops = bt.tail_operands(bound_q, fact_cols, dim_cols, probes, w)
+        kw = {"n_requests": w, "num_segments": ops[3]}
+        got = bt.batched_tail(*ops[:3], **kw)
+        want = bt.batched_tail_plain(*ops[:3], **kw)
+        if not all(torch.equal(g, x) for g, x in zip(got, want)):
+            raise AssertionError(f"batched_tail on {name} x{w} differs from "
+                                 "its plain version")
+        out[name, w] = device_ms(lambda: bt.batched_tail(*ops[:3], **kw),
+                                 TAIL_REPS)
+        del ops, got, want
+    return out
+
+
+def forced_schedules(tables, smi: str, dev) -> dict:
+    """Each of ``FORCED_SCHEDULES`` forced through
+    ``ExecutionPolicy(schedule=)``: every dimension's re-probe as a
+    snapshot makes it (``_join``: ``lookup`` under the plan), its device ms,
+    its packed words equal to the gathered schedule's, and the plan's
+    estimates.  Returns ``{dim: {schedule: ms}}``."""
+    import torch
+
+    from repro_torch.core import ExecutionPolicy, pack_words
+    from repro_torch.engine import SSBEngine, lookup
+    from repro_torch.engine.queries import DIM_PK, FACT_FK
+
+    words, ms = {}, {d: {} for d in DIM_PK}
+    for sc in FORCED_SCHEDULES:
+        t0 = time.perf_counter()
+        eng = SSBEngine(tables, policy=ExecutionPolicy(schedule=sc),
+                        device=dev)
+        build_s = time.perf_counter() - t0
+        for d in DIM_PK:
+            plan = eng.plans[d]
+            w = pack_words(lookup(eng.indexes[d],
+                                  eng.tables["lineorder"][FACT_FK[d]],
+                                  impl="cuda", plan=plan,
+                                  hot_codes=eng._hot_codes.get(d)))
+            if d not in words:
+                words[d] = w
+            elif not torch.equal(w, words[d]):
+                raise AssertionError(f"{d}: the {sc} re-probe's words differ "
+                                     f"from the {FORCED_SCHEDULES[0]} one's")
+            del w
+            ms[d][sc] = device_ms(lambda: eng._join(d), REPROBE_REPS)
+            est = {k: round(v * 1e3, 4) for k, v in plan.est_seconds}
+            log(f"[plan] {smi}: skewed tables, {d} forced {sc!r} "
+                f"(hot {plan.hot_entries} / {plan.hot_slots} slots, cold "
+                f"capacity {plan.cold_capacity}, full map {plan.full_map}): "
+                f"re-probe {ms[d][sc]:.4f} ms, words equal; estimated ms "
+                f"{json.dumps(est)}; engine built in {build_s:.2f} s")
+        del eng
+        torch.cuda.empty_cache()
+    for d in DIM_PK:
+        fastest = min(ms[d], key=ms[d].get)
+        x = ms[d]["gathered"] / ms[d][fastest]
+        log(f"[plan] {smi}: skewed tables, {d}: measured ms "
+            f"{json.dumps({k: round(v, 4) for k, v in ms[d].items()})}; "
+            f"fastest {fastest!r}, gathered at {x:.3f}x of it "
+            f"({'within' if x <= PICK_SLACK else 'NOT within'} "
+            f"{PICK_SLACK})")
+    return ms
+
+
+def skewed_tails(seed: int, smi: str, dev, rows: dict | None = None) -> dict:
+    """Phase 6j on skewed keys.
+
+    The tables of ``TAIL_DEPLOYMENTS`` (``rows`` replaces their row counts
+    for a rehearsal), one after the other: each query's ``batched_tail``
+    at ``TAIL_WIDTHS`` requests (the same constants on both) over a warm
+    probe cache, bit-identical to the plain version, its kernel ms on each
+    and their ratio (``[tail-zipf]``; past ``TAIL_SLOWER`` the query is
+    named), and one default re-probe of each dimension on each; then
+    ``forced_schedules`` on the skewed tables.  Returns the times."""
+    import numpy as np
+    import torch
+
+    from bench.datagen import DataGen
+    from repro_torch.engine import SSB_QUERIES, SSBEngine, Table
+    from repro_torch.engine.queries import DIM_PK
+    from repro_torch.serving import PARAM_QUERIES
+
+    t0 = time.perf_counter()
+    rng = np.random.default_rng(seed)
+    params = {(q, w): [PARAM_QUERIES[q].sample(rng) for _ in range(w)]
+              for q in sorted(SSB_QUERIES) for w in TAIL_WIDTHS}
+    times, gathered = {}, {}
+    for dist, name in TAIL_DEPLOYMENTS:
+        config = json.loads((Path(__file__).resolve().parent / "bench"
+                             / "configs" / f"{name}.json").read_text())
+        if rows is not None:
+            config["rows"] = rows
+        fact, dims = DataGen(config, seed, dev).tables()
+        tables = {"lineorder": Table(fact),
+                  **{d: Table(c) for d, c in dims.items()}}
+        del fact, dims
+        eng = SSBEngine(dict(tables), device=dev)
+        eng.warm_cache()
+        torch.cuda.synchronize()
+        shares = {d: (round(eng.indexes[d].stats.fact_skew.max_share, 6),
+                      eng.indexes[d].stats.fact_skew.distinct)
+                  for d in DIM_PK}
+        log(f"[tail-zipf] {name} ({dist} keys): "
+            f"{eng.tables['lineorder'].n_rows} fact rows, dimension rows "
+            f"{json.dumps({d: eng.tables[d].n_rows for d in DIM_PK})}; "
+            f"hottest key's share and distinct keys by dimension "
+            f"{json.dumps(shares)}; engine and probe cache at "
+            f"{time.perf_counter() - t0:.1f} s")
+        times[dist] = tail_kernel_ms(eng, params, dev)
+        gathered[dist] = {d: device_ms(lambda: eng._join(d), REPROBE_REPS)
+                          for d in DIM_PK}
+        log(f"[tail-zipf] {smi}: {name}: one re-probe a dimension "
+            f"(default plan, gathered), device ms "
+            f"{json.dumps({d: round(v, 4) for d, v in gathered[dist].items()})}")
+        del eng
+        torch.cuda.empty_cache()
+    slower = []
+    for q in sorted(SSB_QUERIES):
+        cells = []
+        for w in TAIL_WIDTHS:
+            u, z = times["uniform"][q, w], times["zipf"][q, w]
+            cells.append(f"x{w} {u:.4f} / {z:.4f} ({z / u:.2f}x)")
+            if z > TAIL_SLOWER * u:
+                slower.append((q, w))
+        log(f"[tail-zipf] {smi}: {q} kernel ms uniform / Zipf: "
+            f"{'; '.join(cells)}; bit-identical")
+    for w in TAIL_WIDTHS:
+        su = sum(times["uniform"][q, w] for q in SSB_QUERIES)
+        sz = sum(times["zipf"][q, w] for q in SSB_QUERIES)
+        log(f"[tail-zipf] {smi}: x{w} summed over the 13 queries: uniform "
+            f"{su:.4f} ms, Zipf {sz:.4f} ms ({sz / su:.2f}x)")
+    log(f"[tail-zipf] past {TAIL_SLOWER}x its uniform time: "
+        f"{slower if slower else 'none'}")
+    reprobe = forced_schedules(tables, smi, dev)
+    return {"tails": times, "slower": slower, "reprobe": reprobe,
+            "gathered": gathered}
 
 
 def log(*parts):
@@ -4256,6 +4446,9 @@ def main() -> int:
     (rows["batched_tail"], tail_launches), got = counted(
         lambda: query_tails(args.seed + 10, smi, dev))
     log(f"[launches] phase 6j: {json.dumps(got)}")
+    gc.collect()
+    torch.cuda.empty_cache()
+    skewed_tails(args.seed + 10, smi, dev)
     log(f"[6j] the batched query tail: {time.perf_counter() - t_6j:.1f} s")
 
     # -- 8. numbers ---------------------------------------------------------------

@@ -8,9 +8,13 @@ fixed grid of h (how much a replicated hot table of size h would cover).
 
 ``measure_skew`` and ``top_keys`` take a numpy array or a tensor.  A
 tensor is reduced to its ``(values, counts)`` pair on its own device
-(``torch.unique``; at most the code space crosses to the host), and the
-host finishes with the reference's numpy lines, so the result is the same
-either way.  A host ``np.unique`` of a 60M-row FK column takes seconds.
+(``torch.bincount`` over its value range where that is no wider than the
+tensor, else ``torch.unique``; at most the code space crosses to the
+host), and the host finishes with the reference's numpy lines, so the
+result is the same either way.  A host ``np.unique`` of a 60M-row FK
+column takes seconds; a ``torch.unique`` of a 200M-row one holds sorted
+copies of it, which the binned count never does (a re-measure runs inside
+a fact append, beside the queries' own device memory).
 """
 from __future__ import annotations
 
@@ -22,6 +26,12 @@ import torch
 # hot-table candidate sizes (entries) the planner may replicate; the
 # top-share curve is measured exactly at these points
 TOP_SHARE_GRID = (64, 256, 1024, 4096, 16384, 32768)
+
+# a tensor whose keys span at most its length, and at most this many
+# values, is counted in bins (8 bytes a value: 128 MiB at most), a chunk
+# of this many keys at a time
+BIN_MAX_SPAN = 1 << 24
+BIN_CHUNK = 1 << 24
 
 
 def zipf_weights(n: int, s: float) -> np.ndarray:
@@ -74,9 +84,33 @@ class SkewStats:
 def _unique_counts(keys) -> tuple[np.ndarray, np.ndarray]:
     """Sorted distinct values and their counts, as host arrays."""
     if torch.is_tensor(keys):
+        counted = _binned_counts(keys.reshape(-1))
+        if counted is not None:
+            return counted
         vals, counts = torch.unique(keys, sorted=True, return_counts=True)
         return vals.cpu().numpy(), counts.cpu().numpy()
     return np.unique(np.asarray(keys), return_counts=True)
+
+
+def _binned_counts(keys: torch.Tensor):
+    """``_unique_counts`` of an int32 or int64 tensor whose values span at
+    most its length (and ``BIN_MAX_SPAN``): one bin a value, filled by
+    ``torch.bincount`` ``BIN_CHUNK`` keys at a time, so that beside the
+    bins it holds one chunk, where ``torch.unique`` holds sorted copies of
+    the whole column.  None where the range is wider."""
+    n = keys.numel()
+    if n == 0 or keys.dtype not in (torch.int32, torch.int64):
+        return None
+    lo, hi = (int(v) for v in torch.aminmax(keys))
+    span = hi - lo + 1
+    if span > min(n, BIN_MAX_SPAN):
+        return None
+    bins = torch.zeros(span, dtype=torch.int64, device=keys.device)
+    for s in range(0, n, BIN_CHUNK):
+        bins += torch.bincount(keys[s:s + BIN_CHUNK] - lo, minlength=span)
+    vals = torch.nonzero(bins).squeeze(1)
+    counts = bins[vals]
+    return (vals + lo).to(keys.dtype).cpu().numpy(), counts.cpu().numpy()
 
 
 def measure_skew(keys) -> SkewStats:

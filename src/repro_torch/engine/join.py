@@ -17,8 +17,10 @@ JAX package picks 128 on a TPU, one VMEM lane row.)
 
 ``BuildStats.fact_skew`` records the skew of the fact-side FK column an
 index is probed with (``build_dim_index(fact_keys=)``), the input of the
-probe-schedule planner.  ``lookup`` runs every schedule: gathered,
-stream, deduped and hot/cold (``plan=`` and ``hot_codes=``).
+probe-schedule planner; each measurement runs under an
+``engine.skew_measure`` span (``measure_fact_skew``).  ``lookup`` runs
+every schedule: gathered, stream, deduped and hot/cold (``plan=`` and
+``hot_codes=``).
 ``tail_lookup`` and ``extend_cached_probe`` probe only an appended fact
 tail, under the same plan, and splice it into a cached probe.
 
@@ -35,6 +37,7 @@ import dataclasses
 import numpy as np
 import torch
 
+from repro_torch import trace
 from repro_torch.core.delta import (TOMBSTONE, DeltaTable, apply_batch,
                                     delta_entries, delta_is_empty,
                                     empty_delta, merge_entries,
@@ -89,20 +92,34 @@ class DimIndex:
     delta: DeltaTable | None = None
 
 
+def measure_fact_skew(fact_keys, dim: str | None = None) -> SkewStats:
+    """``measure_skew`` of a fact FK column under an ``engine.skew_measure``
+    span with the ``dim`` it joins and the ``rows``, ``distinct`` keys and
+    ``max_share`` it found (on the card the span's wall time is the
+    device's: the distinct count is read back)."""
+    attrs = {} if dim is None else {"dim": dim}
+    with trace.span("engine.skew_measure", **attrs) as sp:
+        st = measure_skew(fact_keys)
+        sp.set(rows=st.n, distinct=st.distinct, max_share=st.max_share)
+    return st
+
+
 def build_dim_index(dim_keys: torch.Tensor, *, bucket_width: int | None = None,
                     load: float = 0.5, max_grow_retries: int = 8,
-                    fact_keys=None) -> DimIndex:
+                    fact_keys=None, dim: str | None = None) -> DimIndex:
     """Encode the build column, then build the unique-key hash table whose
     values are dimension-row indices.  Lossless: on bucket overflow the
     bucket count doubles (up to ``max_grow_retries`` times).
 
     ``fact_keys`` (optional; a tensor, measured on its own device, or a
     numpy array) is the fact-side FK column this index will be probed
-    with; its ``measure_skew`` summary lands on ``BuildStats.fact_skew``.
+    with; its ``measure_skew`` summary lands on ``BuildStats.fact_skew``
+    (``measure_fact_skew``, whose span names ``dim``).
     """
     bucket_width = bucket_width or DEFAULT_BUCKET_WIDTH
     n = int(dim_keys.shape[0])
-    fact_skew = measure_skew(fact_keys) if fact_keys is not None else None
+    fact_skew = (measure_fact_skew(fact_keys, dim) if fact_keys is not None
+                 else None)
     dev = dim_keys.device
     d = build_dictionary(dim_keys, capacity=max(1, n))
     codes = encode(d, dim_keys)

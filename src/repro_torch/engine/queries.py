@@ -77,12 +77,12 @@ replay.  ``close()`` refuses every later mutation; queries and held
 snapshots keep answering.
 
 Counters: ``cache_info()`` (probe-cache hits, misses, invalidations),
-``fact_append_info()`` (appends, tail extensions and re-probes, skew
-re-plans), ``ingest_info()`` (ingest batches, ``compactions``, per-dim
-delta occupancy) and ``snapshot_info()`` (snapshots taken and live, pinned
-copies, and ``snapshot_reprobes``: the lazy probes snapshots made of
-dimensions the engine had not cached when they froze, counted here so
-that the count outlives the snapshots).
+``fact_append_info()`` (appends, tail extensions and re-probes, fact-side
+skew measurements and re-plans), ``ingest_info()`` (ingest batches,
+``compactions``, per-dim delta occupancy) and ``snapshot_info()``
+(snapshots taken and live, pinned copies, and ``snapshot_reprobes``: the
+lazy probes snapshots made of dimensions the engine had not cached when
+they froze, counted here so that the count outlives the snapshots).
 
 Spans (``repro_torch.trace``; the recorder is off by default and a site
 then costs one flag check): ``engine.append_fact_rows``,
@@ -90,10 +90,13 @@ then costs one flag check): ``engine.append_fact_rows``,
 call, ``engine.extend_probe`` around each cached dimension's tail
 extension in an append (with the planner's ``decision``),
 ``engine.compact`` around each merge (with its ``flavor`` and the
-``est_merge_s`` of the plan that chose it), and ``engine.lock_wait`` where
-acquiring the engine lock (``site``: the mutation, ``snapshot``,
-``release``, ``prepare_compact``, ``publish_compact``) waited
-``trace.LOCK_WAIT_MIN_S`` or more.
+``est_merge_s`` of the plan that chose it), ``engine.skew_measure`` around
+each measurement of a fact FK column's skew (at build and on a
+re-measure), ``engine.skew_replan`` around each re-plan it triggers (with
+the ``old`` and ``new`` schedule and whether the decision ``changed``),
+and ``engine.lock_wait`` where acquiring the engine lock (``site``: the
+mutation, ``snapshot``, ``release``, ``prepare_compact``,
+``publish_compact``) waited ``trace.LOCK_WAIT_MIN_S`` or more.
 """
 from __future__ import annotations
 
@@ -119,13 +122,13 @@ from repro_torch.core.planner import (FACT_REMEASURE_FRAC, TOP_SHARE_DRIFT,
                                       plan_query, refine_plan, skew_drift)
 from repro_torch.core.policy import (ExecutionPolicy, check_value,
                                      resolve_policy)
-from repro_torch.core.skew import measure_skew, top_keys
+from repro_torch.core.skew import top_keys
 from repro_torch.engine import baselines
 from repro_torch.engine.join import (DimIndex, build_dim_index,
                                      compact_index, effective_index,
                                      extend_cached_probe, found_rows,
                                      ingest_index, lookup, lookup_filtered,
-                                     probe_fn_for)
+                                     measure_fact_skew, probe_fn_for)
 from repro_torch.engine.table import Table, resolve_device, tail_bucket
 from repro_torch.kernels.fused_query import fused_query
 from repro_torch.kernels.ref import segment_sum
@@ -624,7 +627,7 @@ class SSBEngine(_QueryRunner):
                 for dim, pk in DIM_PK.items():
                     self.indexes[dim] = build_dim_index(
                         tables[dim][pk],
-                        fact_keys=fact[FACT_FK[dim]][:n_fact])
+                        fact_keys=fact[FACT_FK[dim]][:n_fact], dim=dim)
             for dim in self.indexes:
                 self._plan_dim(dim)
         # cross-query probe cache: dim -> (found, dim_row) over the
@@ -666,6 +669,9 @@ class SSBEngine(_QueryRunner):
         self._tail_extensions = 0
         self._tail_reprobes = 0
         self._skew_replans = 0
+        # fact FK columns measured: one a dimension at build (adopted
+        # indexes bring their own), then one a dimension per re-measure
+        self._skew_measures = len(self.indexes) if indexes is None else 0
         self._skew_measured_rows = n_fact
         self._hits = 0
         self._misses = 0
@@ -1314,25 +1320,30 @@ class SSBEngine(_QueryRunner):
             st = idx.stats
             if st is None:
                 continue
-            fresh = measure_skew(fact[FACT_FK[dim]][:n_valid])
+            fresh = measure_fact_skew(fact[FACT_FK[dim]][:n_valid], dim)
+            self._skew_measures += 1
             if (st.fact_skew is not None
                     and skew_drift(st.fact_skew, fresh) < TOP_SHARE_DRIFT):
                 continue
-            self.indexes[dim] = dataclasses.replace(
-                idx, stats=dataclasses.replace(st, fact_skew=fresh))
-            old = self.plans.get(dim)
-            self._plan_dim(dim)
-            new = self.plans.get(dim)
-            if old is not None and (
+            with trace.span("engine.skew_replan", dim=dim) as sp:
+                self.indexes[dim] = dataclasses.replace(
+                    idx, stats=dataclasses.replace(st, fact_skew=fresh))
+                old = self.plans.get(dim)
+                self._plan_dim(dim)
+                new = self.plans.get(dim)
+                same = old is not None and (
                     old.schedule, old.hot_entries, old.hot_slots,
                     old.cold_capacity, old.full_map) == (
                     new.schedule, new.hot_entries, new.hot_slots,
-                    new.cold_capacity, new.full_map):
-                # same decision, fresher estimates: keep the old plan and
-                # index metadata (the drift trigger re-evaluates against
-                # the old baseline at the next re-measure)
-                self.plans[dim] = old
-                self.indexes[dim] = idx
+                    new.cold_capacity, new.full_map)
+                if same:
+                    # same decision, fresher estimates: keep the old plan
+                    # and index metadata (the drift trigger re-evaluates
+                    # against the old baseline at the next re-measure)
+                    self.plans[dim] = old
+                    self.indexes[dim] = idx
+                sp.set(old=None if old is None else old.schedule,
+                       new=new.schedule, changed=not same)
             self._skew_replans += 1
             replanned.append(dim)
         return replanned
@@ -1351,6 +1362,7 @@ class SSBEngine(_QueryRunner):
                 "rows_appended": self._fact_rows_appended,
                 "tail_extensions": self._tail_extensions,
                 "tail_reprobes": self._tail_reprobes,
+                "skew_measures": self._skew_measures,
                 "skew_replans": self._skew_replans,
                 "n_valid": fact.n_rows,
                 "n_physical": fact.n_physical}

@@ -19,8 +19,9 @@ the request, begun and finished on different threads), ``serve.batch``
 and ``serve.refresh`` (``serving/scheduler.py``); ``batch.probes``,
 ``batch.tail`` and ``batch.readback`` (``serving/batch.py``);
 ``snapshot.reprobe`` (``engine/snapshot.py``); ``engine.append_fact_rows``,
-``engine.append_rows``, ``engine.ingest``, ``engine.extend_probe`` and
-``engine.compact`` (``engine/queries.py``); ``engine.lock_wait``, the time
+``engine.append_rows``, ``engine.ingest``, ``engine.extend_probe``,
+``engine.compact`` and ``engine.skew_replan`` (``engine/queries.py``);
+``engine.skew_measure`` (``engine/join.py``); ``engine.lock_wait``, the time
 spent acquiring the engine lock where it exceeded ``LOCK_WAIT_MIN_S``;
 ``probe.overlay`` (``core/lookup.py``).
 """

@@ -6,10 +6,11 @@ JAX engine (``kernel="xla"``, gathered) and two port engines on the CPU
 (``kernel="cuda"``, whose kernel wrappers take their plain versions here,
 and ``kernel="torch"``), every probe cache warm so that appends extend it.
 After every step the port's cached, cold and mega answers equal the JAX
-engine's, and so do its append reports, epochs, ``fact_append_info()``,
-capacity and cached probes over the physical rows.  Last, the JAX
-engine's state after the stream, carried across through
-``engine/convert.py``, answers as its port twin does.  The append path's
+engine's, and so do its append reports, epochs, ``fact_append_info()``
+(but the port's own ``skew_measures``), capacity and cached probes over
+the physical rows.  Last, the JAX engine's state after the stream,
+carried across through ``engine/convert.py``, answers as its port twin
+does.  The append path's
 pieces and the engine surface are in ``test_torch_append_engine.py``.
 """
 import os
@@ -196,7 +197,11 @@ def test_state_matches_jax_after_each_step(stream, step):
     for k in ("cuda", "torch"):
         epoch, fact, info, cache_epoch, probes = state[k]
         assert (epoch, fact, cache_epoch) == (jepoch, jfact, jcache_epoch), k
-        assert info == jinfo, k
+        # the port also counts its skew measurements: one a dimension at
+        # build, one a dimension at each re-measure
+        assert {c: v for c, v in info.items() if c != "skew_measures"} == \
+            jinfo, k
+        assert info["skew_measures"] >= len(DIMS), k
         assert sorted(probes) == sorted(jprobes), k
         for d, (found, row) in probes.items():
             np.testing.assert_array_equal(found, jprobes[d][0], err_msg=d)

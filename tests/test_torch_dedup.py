@@ -261,3 +261,25 @@ def test_measure_skew_of_an_empty_stream_matches_jax():
         assert (got.n, got.distinct, got.dup_factor, got.max_share,
                 got.top_share) == (want.n, want.distinct, want.dup_factor,
                                    want.max_share, want.top_share)
+
+
+@pytest.mark.parametrize("dtype", [torch.int32, torch.int64])
+@pytest.mark.parametrize("spread, binned", [(1, True), (10_000, False)],
+                         ids=["binned", "sorted"])
+def test_tensor_counts_match_numpy_binned_or_sorted(dtype, spread, binned,
+                                                    monkeypatch):
+    """A tensor's values and counts equal ``np.unique``'s, whether its
+    range is narrow enough to count in bins (a chunk of 7 keys at a time
+    here, so that chunks split runs of one value) or is sorted."""
+    monkeypatch.setattr(tskew, "BIN_CHUNK", 7)
+    keys = (jskew.zipf_sample(300, 2_000, 1.0, seed=3).astype(np.int64)
+            - 150) * spread
+    t = torch.as_tensor(keys, dtype=dtype)
+    assert (tskew._binned_counts(t) is not None) == binned
+    vals, counts = tskew._unique_counts(t)
+    want_vals, want_counts = np.unique(keys, return_counts=True)
+    np.testing.assert_array_equal(vals, want_vals)
+    np.testing.assert_array_equal(counts, want_counts)
+    assert tskew.measure_skew(t) == tskew.measure_skew(keys)
+    np.testing.assert_array_equal(tskew.top_keys(t, 50),
+                                  tskew.top_keys(keys, 50))

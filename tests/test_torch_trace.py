@@ -3,8 +3,10 @@
 Off, it records nothing and costs a flag check; on, the serving tier's
 and the engine's spans nest on their thread, carry their dispatch's batch
 id, time a wait for the engine lock, and the engine counts the lazy probes
-its snapshots make.
+its snapshots make and the fact-side skew measurements it takes, each
+measurement and re-plan a span of its own.
 """
+import dataclasses
 import threading
 import time
 
@@ -243,3 +245,99 @@ def test_a_rejected_request_leaves_the_queue_untaken(engine):
     assert [s.attrs.get("outcome") for s in queued] == [None, "rejected"]
     assert queued[0].attrs["batch"] is not None
     assert "batch" not in queued[1].attrs
+
+
+SKEW_DIMS = ["customer", "date", "part", "supplier"]
+
+
+def _plan_key(p):
+    return (p.schedule, p.hot_entries, p.hot_slots, p.cold_capacity,
+            p.full_map)
+
+
+def test_skew_measure_spans_at_build_and_on_a_forced_remeasure(tables):
+    n = tables["lineorder"].n_rows
+    eng = None
+
+    def build():
+        nonlocal eng
+        eng = SSBEngine(dict(tables), device="cpu")
+
+    spans = _record(build)
+    measured = [s for s in spans if s.name == "engine.skew_measure"]
+    assert sorted(s.attrs["dim"] for s in measured) == SKEW_DIMS
+    for s in measured:
+        st = eng.indexes[s.attrs["dim"]].stats.fact_skew
+        assert (s.attrs["rows"], s.attrs["distinct"], s.attrs["max_share"]) \
+            == (n, st.distinct, st.max_share) and s.parent is None
+    info = eng.fact_append_info()
+    assert (info["skew_measures"], info["skew_replans"]) == (4, 0)
+    # the same rows measured again: four measurements, no drift, no re-plan
+    spans = _record(lambda: eng._maybe_replan_fact_skew(force=True))
+    assert sorted(s.attrs["dim"] for s in spans
+                  if s.name == "engine.skew_measure") == SKEW_DIMS
+    assert not [s for s in spans if s.name == "engine.skew_replan"]
+    info = eng.fact_append_info()
+    assert (info["skew_measures"], info["skew_replans"]) == (8, 0)
+    # off, the counter still counts and nothing is recorded
+    assert eng._maybe_replan_fact_skew(force=True) == []
+    assert eng.fact_append_info()["skew_measures"] == 12
+    assert trace.disable() == []
+    # adopted indexes were measured where they were built
+    assert SSBEngine(dict(tables), indexes=eng.indexes, device="cpu") \
+        .fact_append_info()["skew_measures"] == 0
+
+
+def test_skew_replans_move_with_a_replan_span(tables):
+    """An append whose hot customer moves the top share past
+    ``TOP_SHARE_DRIFT`` re-plans, and each re-plan is one
+    ``engine.skew_replan`` span that says whether the decision changed.
+    ``skew_replans`` counts the re-plans, as the JAX package's counter
+    does, whether or not the decision changed."""
+    from repro_torch.core import planner
+
+    eng = SSBEngine(dict(tables), "jspim", "torch", "auto", device="cpu")
+    eng.warm_cache()
+    before = {d: _plan_key(p) for d, p in eng.plans.items()}
+    n = int(tables["lineorder"].n_rows * planner.FACT_REMEASURE_FRAC) + 1
+    rows = generate_fact_batch(eng.tables, n, np.random.default_rng(9))
+    rows["custkey"][:] = int(eng.tables["customer"]["custkey"][7])
+    report = {}
+    spans = _record(lambda: report.update(eng.append_fact_rows(rows)))
+    by_id = {s.id: s for s in spans}
+    replans = [s for s in spans if s.name == "engine.skew_replan"]
+    assert "customer" in report["skew_replanned"]
+    assert sorted(s.attrs["dim"] for s in replans) == \
+        sorted(report["skew_replanned"])
+    assert eng.fact_append_info()["skew_replans"] == len(replans)
+    for s in replans:
+        d = s.attrs["dim"]
+        after = _plan_key(eng.plans[d])
+        assert (s.attrs["old"], s.attrs["new"]) == (before[d][0], after[0])
+        assert s.attrs["changed"] == (after != before[d])
+        assert by_id[s.parent].name == "engine.append_fact_rows"
+    measured = [s for s in spans if s.name == "engine.skew_measure"]
+    assert sorted(s.attrs["dim"] for s in measured) == SKEW_DIMS
+    assert all(s.attrs["rows"] == tables["lineorder"].n_rows + n
+               for s in measured)
+    # a re-plan that kept its decision kept the old baseline too, so the
+    # next measurement re-plans that dimension again, changing nothing
+    kept = sorted(s.attrs["dim"] for s in replans if not s.attrs["changed"])
+    assert kept == ["customer"]
+    spans = _record(lambda: eng._maybe_replan_fact_skew(force=True))
+    again = [s for s in spans if s.name == "engine.skew_replan"]
+    assert [(s.attrs["dim"], s.attrs["changed"]) for s in again] == \
+        [("customer", False)]
+    # a stale decision changes: the plan takes the fresh curve, and the
+    # next measurement finds no drift
+    eng.plans["customer"] = dataclasses.replace(eng.plans["customer"],
+                                                schedule="deduped")
+    spans = _record(lambda: eng._maybe_replan_fact_skew(force=True))
+    changed = [s for s in spans if s.name == "engine.skew_replan"]
+    assert [(s.attrs["dim"], s.attrs["old"], s.attrs["new"],
+             s.attrs["changed"]) for s in changed] == \
+        [("customer", "deduped", "gathered", True)]
+    assert eng._maybe_replan_fact_skew(force=True) == []
+    info = eng.fact_append_info()
+    assert (info["skew_measures"], info["skew_replans"]) == \
+        (20, len(replans) + 2)
